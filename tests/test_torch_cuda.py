@@ -1,0 +1,178 @@
+"""Tests of the port that need a CUDA card (marker ``cuda``; each skips
+where ``torch.cuda.is_available()`` is false).  They import neither JAX
+nor the JAX package and use no fixture of tests/conftest.py, so that they
+run on a machine with the card but without JAX:
+
+    python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_cuda.py
+
+The kernel is held to its plain version with the tolerance of
+tests/test_pallas_knn.py (d2 rtol 1e-4 / atol 1e-3 where finite, index
+agreement ≥ 0.99 where finite); the slice on the card to the slice on the
+CPU within 1e-2 m (float atomics and FMA contraction on the card sum in
+another order, and the LOAM plane gates amplify that to mm-level pose
+differences).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mvil_fusion_torch.config import SystemConfig
+from mvil_fusion_torch.frontend.lidar_compensator import LidarCompensator
+from mvil_fusion_torch.io.synthetic import SyntheticTrajectory
+from mvil_fusion_torch.io.synthetic_lidar import BoxWorld, simulate_sweep
+from mvil_fusion_torch.mapping.local_mapping import LocalMapper
+from mvil_fusion_torch.ops import deskew
+from mvil_fusion_torch.ops import knn_topk as K
+
+pytestmark = pytest.mark.cuda
+
+SHAPES = [(100, 1000, 5), (256, 4096, 10), (37, 513, 3), (256, 16384, 5),
+          (4096, 32768, 10), (256, 4096, 128), (1, 1, 1)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda:0")
+
+
+def _inputs(nq, nr, device, masked=0.2, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.uniform(-60, 60, (nq, 3)).astype(np.float32)
+    r = rng.uniform(-60, 60, (nr, 3)).astype(np.float32)
+    m = rng.uniform(size=nr) >= masked
+    return tuple(torch.as_tensor(a, device=device) for a in (q, r, m))
+
+
+@pytest.mark.parametrize("nq,nr,k", SHAPES)
+def test_kernel_matches_plain(cuda, nq, nr, k):
+    q, r, m = _inputs(nq, nr, cuda)
+    before = K.knn_topk_cuda.launches
+    idx_c, d2_c = K.knn_topk_cuda(q, r, m, k)
+    torch.cuda.synchronize()
+    assert K.knn_topk_cuda.launches == before + 1
+    idx_p, d2_p = K.knn_topk_plain(q, r, m, k)
+    fin = torch.isfinite(d2_p)
+    torch.testing.assert_close(d2_c[fin], d2_p[fin], rtol=1e-4, atol=1e-3)
+    assert bool((d2_c[~fin] > 1e20).all())
+    assert float((idx_c == idx_p)[fin].float().mean()) >= 0.99
+
+
+def test_kernel_all_masked_and_short_reference(cuda):
+    q, r, m = _inputs(64, 1024, cuda, masked=1.0)
+    idx, d2 = K.knn_topk_cuda(q, r, m, 5)
+    assert bool(torch.isinf(d2).all()) and bool((idx == 0).all())
+    q, r, _ = _inputs(8, 3, cuda)
+    m = torch.tensor([True, False, True], device=cuda)
+    idx, d2 = K.knn_topk_cuda(q, r, m, 4)
+    assert bool(torch.isfinite(d2[:, :2]).all())
+    assert bool(torch.isinf(d2[:, 2:]).all()) and bool((idx[:, 2:] == 0).all())
+    assert set(idx[:, :2].flatten().tolist()) <= {0, 2}
+
+
+def test_kernel_breaks_ties_toward_lower_index(cuda):
+    """Exact duplicates: the lower reference index comes first, as
+    lax.top_k orders them."""
+    base = torch.tensor([[1.0, 2.0, 3.0], [5.0, 5.0, 5.0], [1.0, 2.0, 3.0],
+                         [9.0, 9.0, 9.0], [1.0, 2.0, 3.0]], device=cuda)
+    ref = torch.cat([base, base]).contiguous()            # 10 refs
+    mask = torch.ones(10, dtype=torch.bool, device=cuda)
+    mask[0] = False
+    q = torch.tensor([[1.0, 2.0, 3.0]], device=cuda)
+    idx, d2 = K.knn_topk_cuda(q, ref, mask, 6)
+    assert idx[0].tolist() == [2, 4, 5, 7, 9, 1]
+    assert d2[0, :5].tolist() == [0.0] * 5
+
+
+def test_kernel_rejects_mixed_devices(cuda):
+    q, r, m = _inputs(4, 16, cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.knn_topk_cuda(q, r.cpu(), m, 3)
+
+
+TRAJ = SyntheticTrajectory(duration=8.0, w_amp=(0.2, 0.15, 0.4),
+                           w_freq=(0.2, 0.15, 0.25),
+                           p_amp=(1.5, 1.2, 0.3), p_freq=(0.2, 0.25, 0.15),
+                           lin_vel=(0.5, 0.25, 0.0))
+
+
+def _drive(device, n=4, defer=False):
+    """n sweeps of 16 × 480 points with drifting odometry through the
+    slice on `device`; returns (mapped positions, submap flags, kernel
+    launches)."""
+    cfg = SystemConfig()
+    comp = LidarCompensator(cfg, device=device)
+    mapper = LocalMapper(cfg, device=device)
+    mapper.defer_pack = defer
+    rng = np.random.default_rng(0)
+    drift = np.zeros(3)
+    subs = []
+    before = K.knn_topk_cuda.launches
+    for i in range(n):
+        t0 = 0.8 + 0.1 * i
+        s = simulate_sweep(BoxWorld(), TRAJ, t0, n_azimuth=480)
+        drift += rng.normal(scale=0.01, size=3)
+        p0, q0 = TRAJ.pose_at(t0)
+        p1, q1 = TRAJ.pose_at(t0 + 0.1)
+        odom = [np.asarray(v, np.float32) for v in (p0 + drift, q0,
+                                                    p1 + drift, q1)]
+        sw = comp.process(t0, s["pts"], s["mask"])
+        pts = deskew.deskew_to_end(
+            sw.pts, sw.rel_time,
+            *[torch.as_tensor(v, device=device) for v in odom], 0.1)
+        subs.append(mapper.process_full(
+            t0 + 0.1, pts, sw.ring, sw.rel_time, sw.mask, None, odom[2],
+            odom[3], n_rings=16, n_azimuth=480, scan_period=0.1))
+    if defer:
+        subs = subs[1:] + [mapper.flush()]
+    pos = np.array([p for _, p, _ in mapper.trajectory])
+    return pos, [s is not None for s in subs], \
+        K.knn_topk_cuda.launches - before
+
+
+def test_slice_on_card_matches_cpu(cuda):
+    pos_c, subs_c, launches = _drive(cuda)
+    pos_h, subs_h, launches_h = _drive("cpu")
+    assert launches == 6 * 4 and launches_h == 0
+    assert subs_c == subs_h
+    assert np.isfinite(pos_c).all()
+    assert np.abs(pos_c - pos_h).max() < 1e-2
+
+
+def test_deferred_sweep_queues_without_host_sync(cuda):
+    """With its inputs on the card and the readback deferred, a sweep's
+    deskew + process_full makes no host sync (torch.cuda's sync debug mode
+    raises on one), so the host can queue a sweep while the card runs the
+    last."""
+    cfg = SystemConfig()
+    comp = LidarCompensator(cfg, device=cuda)
+    mapper = LocalMapper(cfg, device=cuda)
+    mapper.defer_pack = True
+    for i in range(3):
+        t0 = 0.8 + 0.1 * i
+        s = simulate_sweep(BoxWorld(), TRAJ, t0, n_azimuth=480)
+        sw = comp.process(t0, s["pts"], s["mask"])
+        odom = [torch.as_tensor(np.asarray(v, np.float32), device=cuda)
+                for v in (*TRAJ.pose_at(t0), *TRAJ.pose_at(t0 + 0.1))]
+        mapper.flush()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pts = deskew.deskew_to_end(sw.pts, sw.rel_time, *odom, 0.1)
+            mapper.process_full(t0 + 0.1, pts, sw.ring, sw.rel_time, sw.mask,
+                                None, odom[2], odom[3], n_rings=16,
+                                n_azimuth=480, scan_period=0.1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    mapper.flush()
+    assert len(mapper.trajectory) == 3
+
+
+def test_deferred_mode_on_card(cuda):
+    """Deferred readback through pinned memory and a CUDA event gives the
+    sync run's rows (not bit-equal: the card's atomics vary)."""
+    pos_s, subs_s, _ = _drive(cuda)
+    pos_d, subs_d, _ = _drive(cuda, defer=True)
+    assert subs_d == subs_s
+    assert np.abs(pos_d - pos_s).max() < 1e-2
