@@ -11,7 +11,15 @@ Phases, one line each (any failure raises and the script exits non-zero):
    mvil_fusion_torch/csrc into build/kernels/;
 3. kernel: the k-NN kernel against its plain PyTorch version, on the card,
    at the LOAM path's shapes and at edge cases, with its time and the
-   plain version's (CUDA events, median of 20 after 3 warm-ups);
+   plain version's (CUDA events, median of 20 after 3 warm-ups) and, at
+   the path's shapes, the least time the card could take and the share of
+   it reached; then the kernel's split-and-merge at forced numbers of
+   reference slices (ties across a slice boundary, a slice masked whole),
+   where it must equal the plain version exactly; then the kernel's time
+   on the tensors of one edge call and one plane call taken from sweep 16
+   of the run below (maps populated).  A kernel's time is its time on the
+   device (10 calls replayed as a CUDA graph); beside it stands the time
+   of a call from the host, which for so short a kernel is the wrapper's;
 4. slice: the LOAM local-mapping stage at the reference sensor's full size
    (16 rings × 900 azimuth steps, 14,400 points per sweep; the default
    SystemConfig's map capacities) for 40 sweeps of a synthetic box room
@@ -47,6 +55,14 @@ KNN_SHAPES = [  # (nq, nr, k, what)
     (64, 1024, 5, "all masked"),
 ]
 MAIN_SHAPE = (4096, 32768, 5)
+EDGE_SHAPE = (256, 16384, 5)
+PATH_SHAPES = (EDGE_SHAPE, MAIN_SHAPE, (4096, 32768, 10))
+FORCED_SPLITS = (1, 2, 7, 64)
+CAPTURE_SWEEP = 15          # path data: the k-NN calls of sweep 16
+# NVIDIA's data sheet for the H100 SXM: HBM3 bytes/s, fp32 FLOP/s outside
+# the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
 
 
 def check(ok: bool, msg: str) -> None:
@@ -61,8 +77,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def device_ms(torch, fn, calls=10, reps=20, warmup=3) -> float:
+    """Median milliseconds of one fn() on the card with the host out of
+    the way: `calls` of them captured as one CUDA graph, the replay timed
+    by CUDA events.  For work shorter than the host takes to queue it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(torch, graph.replay, reps, warmup) / calls
+
+
 def time_ms(torch, fn, reps=20, warmup=3) -> float:
-    """Median milliseconds of fn() on the card, by CUDA events."""
+    """Median milliseconds of fn() as the host calls it, by CUDA events
+    around the call: the device time, or the host's time to queue the
+    work where that is longer."""
     for _ in range(warmup):
         fn()
     times = []
@@ -77,39 +108,185 @@ def time_ms(torch, fn, reps=20, warmup=3) -> float:
     return statistics.median(times)
 
 
+def knn_bound_ms(nq: int, nr: int, k: int, live: int):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for one k-NN call.  Bytes: query, reference and mask read once, idx
+    and d2 written once.  Operations: 8 fp32 (3 subtract, 3 multiply,
+    2 add) for each pair of a query and one of the `live` unmasked refs."""
+    by = (12 * nq + 13 * nr + 8 * nq * k) / PEAK_BYTES_S
+    op = 8 * nq * live / PEAK_FP32_S
+    return 1e3 * max(by, op), "bytes" if by > op else "operations"
+
+
+def random_case(torch, rng, nq, nr, masked=0.2):
+    """Uniform points in ±60 m on the card, a share `masked` of the refs
+    masked."""
+    q = rng.uniform(-60, 60, (nq, 3)).astype(np.float32)
+    r = rng.uniform(-60, 60, (nr, 3)).astype(np.float32)
+    m = rng.uniform(size=nr) >= masked
+    return tuple(torch.as_tensor(a).cuda() for a in (q, r, m))
+
+
+def grid_case(torch, rng, nq, nr, masked=0.2):
+    """Points on a small integer grid: every distance is exact in fp32 in
+    either form, and most are tied."""
+    q = rng.integers(-4, 5, (nq, 3)).astype(np.float32)
+    r = rng.integers(-4, 5, (nr, 3)).astype(np.float32)
+    m = rng.uniform(size=nr) >= masked
+    return tuple(torch.as_tensor(a).cuda() for a in (q, r, m))
+
+
+def compare_with_plain(torch, K, q, r, m, k, what, splits=None):
+    """The kernel against its plain version within d2 1e-3 + 1e-4·d2 and
+    index agreement ≥ 0.99; returns (max |d2 error|, agreement)."""
+    idx_k, d2_k = K.knn_topk_cuda(q, r, m, k, _splits=splits)
+    torch.cuda.synchronize()
+    idx_p, d2_p = K.knn_topk_plain(q, r, m, k)
+    fin = torch.isfinite(d2_p)
+    check(bool((d2_k[~fin] > 1e20).all()), f"{what}: masked slot won")
+    check(bool((idx_k[~fin] == 0).all()), f"{what}: empty slot has an index")
+    check(bool(torch.isfinite(d2_k[fin]).all()), f"{what}: lost slot")
+    err, agree = 0.0, 1.0
+    if bool(fin.any()):
+        diff = (d2_k[fin] - d2_p[fin]).abs()
+        err = float(diff.max())
+        check(bool((diff <= 1e-3 + 1e-4 * d2_p[fin].abs()).all()),
+              f"{what}: d2 differs by {err}")
+        agree = float((idx_k == idx_p)[fin].float().mean())
+        check(agree >= 0.99, f"{what}: index agreement {agree}")
+    return err, agree
+
+
+def knn_times(torch, K, q, r, m, k):
+    """(kernel ms on the device, kernel ms a call from the host, plain ms
+    a call from the host)."""
+    return (device_ms(torch, lambda: K.knn_topk_cuda(q, r, m, k)),
+            time_ms(torch, lambda: K.knn_topk_cuda(q, r, m, k)),
+            time_ms(torch, lambda: K.knn_topk_plain(q, r, m, k)))
+
+
 def phase_kernel(torch, K, card):
+    """Kernel vs plain at KNN_SHAPES on random points; returns (max |d2
+    error|, {path shape: (kernel device ms, kernel call ms, plain ms,
+    bound ms, bound by)})."""
     rng = np.random.default_rng(SEED)
-    max_err, main = 0.0, None
+    max_err, path = 0.0, {}
     for nq, nr, k, what in KNN_SHAPES:
-        q = rng.uniform(-60, 60, (nq, 3)).astype(np.float32)
-        r = rng.uniform(-60, 60, (nr, 3)).astype(np.float32)
-        m = rng.uniform(size=nr) >= 0.2
-        if what == "all masked":
-            m[:] = False
-        q, r, m = (torch.as_tensor(a).cuda() for a in (q, r, m))
-        idx_k, d2_k = K.knn_topk_cuda(q, r, m, k)
+        q, r, m = random_case(torch, rng, nq, nr,
+                              masked=1.0 if what == "all masked" else 0.2)
+        err, agree = compare_with_plain(torch, K, q, r, m, k, what)
+        max_err = max(max_err, err)
+        ms, call_ms, plain_ms = knn_times(torch, K, q, r, m, k)
+        line = (f"kernel: knn_topk ({nq}, {nr}, k={k}) {what}: ok, max|d2 "
+                f"err| {err:.3g}, idx agree {agree:.5f}; kernel {ms:.4f} ms "
+                f"on the device, {call_ms:.4f} ms a call, plain "
+                f"{plain_ms:.4f} ms")
+        if (nq, nr, k) in PATH_SHAPES:
+            bound, by = knn_bound_ms(nq, nr, k, int(m.sum()))
+            path[(nq, nr, k)] = (ms, call_ms, plain_ms, bound, by)
+            line += (f", bound {bound:.5f} ms ({by}), share of bound "
+                     f"{bound / ms:.4f}")
+        print(f"{line} [{card}]", flush=True)
+    return max_err, path
+
+
+def phase_splits(torch, K):
+    """Split-and-merge at forced numbers of slices.  On random points the
+    kernel is held to the plain version as above; on the integer grid,
+    where nothing rounds, idx and d2 must equal it exactly, ties
+    included."""
+    rng = np.random.default_rng(SEED + 1)
+    cases = 0
+    for nq, nr, k in ((256, 16384, 5), (37, 513, 3), (64, 4096, 10)):
+        q, r, m = random_case(torch, rng, nq, nr)
+        for s in FORCED_SPLITS:
+            compare_with_plain(torch, K, q, r, m, k,
+                               f"({nq}, {nr}, k={k}) in {s} slices", s)
+            cases += 1
+
+    def exact(q, r, m, k, s, what):
+        idx_k, d2_k = K.knn_topk_cuda(q, r, m, k, _splits=s)
         torch.cuda.synchronize()
         idx_p, d2_p = K.knn_topk_plain(q, r, m, k)
-        fin = torch.isfinite(d2_p)
-        check(bool((d2_k[~fin] > 1e20).all()), f"{what}: masked slot won")
-        check(bool(torch.isfinite(d2_k[fin]).all()), f"{what}: lost slot")
-        err, agree = 0.0, 1.0
-        if bool(fin.any()):
-            diff = (d2_k[fin] - d2_p[fin]).abs()
-            err = float(diff.max())
-            check(bool((diff <= 1e-3 + 1e-4 * d2_p[fin].abs()).all()),
-                  f"{what}: d2 differs by {err}")
-            agree = float((idx_k == idx_p)[fin].float().mean())
-            check(agree >= 0.99, f"{what}: index agreement {agree}")
-        max_err = max(max_err, err)
-        ms = time_ms(torch, lambda: K.knn_topk_cuda(q, r, m, k))
-        plain_ms = time_ms(torch, lambda: K.knn_topk_plain(q, r, m, k))
-        print(f"kernel: knn_topk ({nq}, {nr}, k={k}) {what}: ok, max|d2 "
-              f"err| {err:.3g}, idx agree {agree:.5f}; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms [{card}]", flush=True)
-        if (nq, nr, k) == MAIN_SHAPE:
-            main = (ms, plain_ms)
-    return max_err, main
+        check(torch.equal(d2_k, d2_p), f"{what}: d2 not equal to plain")
+        check(torch.equal(idx_k, idx_p), f"{what}: idx not equal to plain")
+
+    for nq, nr, k in ((33, 700, 4), (256, 4096, 10), (16, 2100, 40)):
+        q, r, m = grid_case(torch, rng, nq, nr)
+        for s in FORCED_SPLITS:
+            exact(q, r, m, k, s, f"grid ({nq}, {nr}, k={k}) in {s} slices")
+            cases += 1
+    # duplicates of a query on both sides of the boundary of 2 slices
+    q, r, m = grid_case(torch, rng, 9, 64, masked=0.0)
+    _, length = K.split_geometry(64, 2)
+    r[length - 3:length + 3] = q[0]
+    idx, d2 = K.knn_topk_cuda(q, r, m, 4, _splits=2)
+    torch.cuda.synchronize()
+    dup = torch.nonzero((r == q[0]).all(dim=1)).flatten()[:4]
+    check(idx[0].tolist() == dup.tolist() and d2[0].tolist() == [0.0] * 4,
+          f"ties across a slice boundary: {idx[0].tolist()}")
+    check(int(dup[0]) < length <= int(dup[-1]), "ties not across a boundary")
+    exact(q, r, m, 4, 2, "ties across a slice boundary")
+    # one slice of three masked whole; at most 2 live refs in a slice of 4
+    q, r, m = grid_case(torch, rng, 16, 96)
+    m[32:64] = False
+    exact(q, r, m, 5, 3, "a masked slice")
+    q, r, m = grid_case(torch, rng, 16, 128)
+    m[:] = False
+    m[[3, 40, 41, 70, 127]] = True
+    exact(q, r, m, 4, 4, "fewer than k live refs in a slice")
+    print(f"splits: kernel = plain at forced slices {FORCED_SPLITS} "
+          f"({cases} cases), ties across a boundary, a masked slice, fewer "
+          f"than k live refs in a slice: ok", flush=True)
+
+
+def capture_knn_calls(torch, sweeps, device):
+    """The tensors (query, ref, mask, k) of the first edge call and the
+    first plane call of sweep CAPTURE_SWEEP + 1, after the sweeps before
+    it have filled the maps."""
+    from mvil_fusion_torch.ops import loam_icp
+    comp, mapper = make_stage(device)
+    for s in sweeps[:CAPTURE_SWEEP]:
+        map_sweep(mapper, s, *stage_inputs(torch, comp, s))
+    calls, real = [], loam_icp.knn_topk
+
+    def record(q, r, m, k):
+        calls.append((q.clone(), r.clone(), m.clone(), k))
+        return real(q, r, m, k)
+
+    s = sweeps[CAPTURE_SWEEP]
+    staged = stage_inputs(torch, comp, s)
+    loam_icp.knn_topk = record
+    try:
+        map_sweep(mapper, s, *staged)
+    finally:
+        loam_icp.knn_topk = real
+    torch.cuda.synchronize()
+    edge = next(c for c in calls if c[1].shape[0] == EDGE_SHAPE[1])
+    plane = next(c for c in calls if c[1].shape[0] == MAIN_SHAPE[1])
+    return {"edges": edge, "planes": plane}
+
+
+def phase_path_data(torch, K, sweeps, card):
+    """The kernel on the path's own tensors: against plain, and timed;
+    returns {call: kernel ms}."""
+    out = {}
+    for what, (q, r, m, k) in capture_knn_calls(torch, sweeps,
+                                                "cuda:0").items():
+        nq, nr, live = q.shape[0], r.shape[0], int(m.sum())
+        err, agree = compare_with_plain(torch, K, q, r, m, k,
+                                        f"path data, {what}")
+        check(live > 0, f"path data, {what}: the map is empty")
+        ms, call_ms, plain_ms = knn_times(torch, K, q, r, m, k)
+        bound, by = knn_bound_ms(nq, nr, k, live)
+        print(f"path data: knn_topk ({nq}, {nr}, k={k}) {what} of sweep "
+              f"{CAPTURE_SWEEP + 1}, {live} live refs: ok, max|d2 err| "
+              f"{err:.3g}, idx agree {agree:.5f}; kernel {ms:.4f} ms on the "
+              f"device, {call_ms:.4f} ms a call, plain {plain_ms:.4f} ms, "
+              f"bound {bound:.5f} ms ({by}), share of bound "
+              f"{bound / ms:.4f} [{card}]", flush=True)
+        out[what] = ms
+    return out
 
 
 def make_sweeps():
@@ -206,10 +383,14 @@ def main() -> int:
           flush=True)
 
     # 3. kernel vs plain
-    max_err, (main_ms, main_plain_ms) = phase_kernel(torch, K, card)
+    max_err, path = phase_kernel(torch, K, card)
+    main_ms, main_call_ms, main_plain_ms, main_bound_ms, main_bound_by = \
+        path[MAIN_SHAPE]
+    phase_splits(torch, K)
+    sweeps = make_sweeps()
+    path_ms = phase_path_data(torch, K, sweeps, card)
 
     # 4. the slice on the card
-    sweeps = make_sweeps()
     K.knn_topk_cuda.launches = 0
     mapper, secs = run_slice(torch, sweeps, "cuda:0")
     launches = K.knn_topk_cuda.launches
@@ -240,7 +421,10 @@ def main() -> int:
         "source": "mvil_fusion_torch/csrc/knn_topk.cu",
         "replaces": "mvil_fusion_tpu/ops/pallas_knn.py:145",
         "launches": launches, "max_abs_err": max_err,
-        "ms": main_ms, "plain_ms": main_plain_ms}]}), flush=True)
+        "ms": main_ms, "call_ms": main_call_ms, "plain_ms": main_plain_ms,
+        "bound_ms": main_bound_ms, "bound_by": main_bound_by,
+        "library_ms": None, "edge_ms": path[EDGE_SHAPE][0],
+        "path_data_ms": path_ms}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

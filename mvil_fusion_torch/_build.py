@@ -64,3 +64,18 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     _loaded[name] = lib
     return lib
+
+
+def resource_usage(name: str) -> str:
+    """What ``nvcc -Xptxas -v`` says of ``csrc/<name>.cu``: registers,
+    shared memory and spills of every kernel in it.  Compiles to nowhere;
+    the library that ``load_library`` builds is not touched."""
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", os.devnull,
+           str(CSRC_DIR / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n"
+            f"{proc.stdout}{proc.stderr}")
+    return proc.stderr

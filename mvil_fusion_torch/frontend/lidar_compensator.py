@@ -16,6 +16,7 @@ import torch
 
 from mvil_fusion_torch.config import SystemConfig
 from mvil_fusion_torch.ops import deskew as dsk
+from mvil_fusion_torch.utils.device import resolve_device
 
 # elevation presets (deg): (fov_down, fov_up, n_rings)
 SENSOR_PRESETS = {
@@ -66,10 +67,12 @@ def annotate(pts, mask, start_azi, elev_table, n_rings: int,
 
 class LidarCompensator:
     def __init__(self, cfg: SystemConfig, sensor: str = "leishen_c16",
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
+        """`device` None is the current CUDA device (a RuntimeError where
+        there is no card); a CPU caller passes ``device="cpu"``."""
         self.cfg = cfg
         self.sensor = sensor
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # start-orientation history (the sweep start azimuth is inferred
         # from the last 10 sweeps instead of assuming azimuth 0)
         self._start_hist: list[float] = []

@@ -24,6 +24,7 @@ from mvil_fusion_torch.config import SystemConfig
 from mvil_fusion_torch.ops import loam_features as lfe
 from mvil_fusion_torch.ops import loam_icp, voxel
 from mvil_fusion_torch.utils import lie
+from mvil_fusion_torch.utils.device import resolve_device
 from mvil_fusion_torch.utils.precision import set_fp32_policy
 
 CORNER_CAP = 16384
@@ -71,10 +72,12 @@ def _pack(p_new, q_new, n_e, n_p, res, p_odom, q_odom):
 
 class LocalMapper:
     def __init__(self, cfg: SystemConfig,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
+        """`device` None is the current CUDA device (a RuntimeError where
+        there is no card); a CPU caller passes ``device="cpu"``."""
         set_fp32_policy()
         self.cfg = cfg
-        self.device = dev = torch.device(device)
+        self.device = dev = resolve_device(device)
         f32 = torch.float32
         self.corner_map = torch.zeros((CORNER_CAP, 3), dtype=f32, device=dev)
         self.corner_mask = torch.zeros((CORNER_CAP,), dtype=torch.bool,

@@ -86,6 +86,82 @@ def test_kernel_breaks_ties_toward_lower_index(cuda):
     assert d2[0, :5].tolist() == [0.0] * 5
 
 
+def _grid_inputs(nq, nr, device, masked=0.2, seed=0):
+    """Points on a small integer grid: distances are exact in fp32 and
+    mostly tied, so the kernel must equal the plain version exactly."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-4, 5, (nq, 3)).astype(np.float32)
+    r = rng.integers(-4, 5, (nr, 3)).astype(np.float32)
+    m = rng.uniform(size=nr) >= masked
+    return tuple(torch.as_tensor(a, device=device) for a in (q, r, m))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7, 64])
+@pytest.mark.parametrize("nq,nr,k", [(256, 16384, 5), (37, 513, 3),
+                                     (64, 4096, 10), (16, 2100, 40)])
+def test_kernel_matches_plain_at_forced_splits(cuda, nq, nr, k, splits):
+    q, r, m = _inputs(nq, nr, cuda)
+    idx_c, d2_c = K.knn_topk_cuda(q, r, m, k, _splits=splits)
+    torch.cuda.synchronize()
+    idx_p, d2_p = K.knn_topk_plain(q, r, m, k)
+    fin = torch.isfinite(d2_p)
+    torch.testing.assert_close(d2_c[fin], d2_p[fin], rtol=1e-4, atol=1e-3)
+    assert float((idx_c == idx_p)[fin].float().mean()) >= 0.99
+    q, r, m = _grid_inputs(nq, nr, cuda)
+    idx_c, d2_c = K.knn_topk_cuda(q, r, m, k, _splits=splits)
+    idx_p, d2_p = K.knn_topk_plain(q, r, m, k)
+    assert torch.equal(d2_c, d2_p) and torch.equal(idx_c, idx_p)
+
+
+@pytest.mark.parametrize("case", ["ties across a boundary", "a masked slice",
+                                  "fewer than k live refs in a slice",
+                                  "live at the front only"])
+def test_kernel_merges_slices_exactly(cuda, case):
+    if case == "ties across a boundary":
+        q, r, m = _grid_inputs(9, 64, cuda, masked=0.0)
+        used, length = K.split_geometry(64, 2)
+        r[length - 3:length + 3] = q[0]       # three on each side
+        k, splits = 4, 2
+        idx, d2 = K.knn_topk_cuda(q, r, m, k, _splits=splits)
+        dup = torch.nonzero((r == q[0]).all(dim=1)).flatten()[:k]
+        assert used == 2 and int(dup[0]) < length <= int(dup[-1])
+        assert idx[0].tolist() == dup.tolist()
+        assert d2[0].tolist() == [0.0] * k
+    elif case == "a masked slice":
+        q, r, m = _grid_inputs(16, 96, cuda)
+        m[32:64] = False
+        k, splits = 5, 3
+    elif case == "fewer than k live refs in a slice":
+        q, r, m = _grid_inputs(16, 128, cuda)
+        m[:] = False
+        m[[3, 40, 41, 70, 127]] = True
+        k, splits = 4, 4
+    else:
+        q, r, m = _grid_inputs(24, 1000, cuda)
+        m[150:] = False
+        k, splits = 5, 6
+    idx_c, d2_c = K.knn_topk_cuda(q, r, m, k, _splits=splits)
+    idx_p, d2_p = K.knn_topk_plain(q, r, m, k)
+    assert torch.equal(d2_c, d2_p) and torch.equal(idx_c, idx_p)
+    assert bool((idx_c[torch.isinf(d2_c)] == 0).all())
+
+
+def test_kernel_takes_a_view_off_the_copy_grid(cuda):
+    """A reference that starts 12 bytes into a buffer is not 16-byte
+    aligned; the wrapper realigns it."""
+    q, r, m = _inputs(50, 1001, cuda)
+    idx_v, d2_v = K.knn_topk_cuda(q, r[1:], m[1:], 4)
+    idx_c, d2_c = K.knn_topk_cuda(q, r[1:].clone(), m[1:].clone(), 4)
+    assert torch.equal(idx_v, idx_c) and torch.equal(d2_v, d2_c)
+
+
+def test_default_device_is_the_card(cuda):
+    cfg = SystemConfig()
+    assert LocalMapper(cfg).device.type == "cuda"
+    assert LidarCompensator(cfg).device.type == "cuda"
+    assert LocalMapper(cfg).corner_map.is_cuda
+
+
 def test_kernel_rejects_mixed_devices(cuda):
     q, r, m = _inputs(4, 16, cuda)
     with pytest.raises(ValueError, match="CUDA"):

@@ -188,7 +188,7 @@ def test_load_reference_state_rejects_wrong_shape(runs):
     arrays, host = runs["jax"]["states"][0]
     bad = dict(arrays, surf_map=arrays["surf_map"][:100])
     with pytest.raises(ValueError, match="surf_map"):
-        tlm.LocalMapper(TCFG).load_reference_state(bad, host)
+        tlm.LocalMapper(TCFG, device="cpu").load_reference_state(bad, host)
 
 
 def test_deferred_mode_equals_sync_mode(runs):
