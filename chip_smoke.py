@@ -26,7 +26,27 @@ Phases, one line each (any failure raises and the script exits non-zero):
    with drifting odometry: LidarCompensator.process → deskew_to_end →
    LocalMapper.process_full on cuda:0.  Gates: mean mapped position error
    below half the odometry's, maximum below 0.06 m, 2 submaps, and exactly
-   6 k-NN kernel launches per sweep.
+   6 k-NN kernel launches per sweep;
+5. chained: the 2 submaps of phase 4 through GlobalMapper.add_submap at
+   the default SystemConfig on cuda:0, the second registered against the
+   first.  Gates: 2 nodes, ≥ 1 edge, the registration accepted, node 1
+   within 0.10 m of the truth at its sweep;
+6. loop: two laps (32 keyed scans of 5000 rays, 2.8 m apart) of a square
+   in a 40 × 34 × 8 m box room, odometry drifting by N(0, 0.04) +
+   (0.01, 0.008, 0) m per step, through GlobalMapper at the default
+   capacities (512 nodes, 2048 edges, 512 z priors, 8192 points a scan,
+   hash tables of 2^17 and 2^15) with loop gates cut to the path's length
+   (skip 6 recent poses, 4 poses before reclosing, 4 m proximity, fitness
+   below 0.6).  Gates: 32 nodes, ≥ 1 loop closed, every pose finite, the
+   last lap's mean position error below the odometry's, a global map of
+   more than 1000 finite points.  Prints ms per add_submap (median, and
+   the maximum, a loop-closing one) and the host readbacks per add_submap;
+7. solver: solve_cg on a 512-node, 2048-edge helix (a drifted chain
+   cross-braced with true relative positions): the maximum error must
+   fall below a fifth; ms per solve (CUDA events, median of 5), LM and CG
+   iterations taken and host syncs per solve.  Then vgicp_align and
+   build_gaussian_voxel_map alone at the mapper's shapes (an 8192-point
+   scan, a 5 × 8192-point reference, 12 iterations): ms each.
 
 The second-to-last line is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}.  Neither JAX nor the JAX package is
@@ -347,14 +367,228 @@ def map_sweep(mapper, s, sw, odom):
 
 def run_slice(torch, sweeps, device):
     """The mapping stage, sweep by sweep; returns (mapper, seconds per
-    sweep).  Each sweep ends in process_full's pack readback."""
+    sweep, the submaps it emitted).  Each sweep ends in process_full's
+    pack readback."""
     comp, mapper = make_stage(device)
-    secs = []
+    secs, subs = [], []
     for s in sweeps:
         t = time.perf_counter()
-        map_sweep(mapper, s, *stage_inputs(torch, comp, s))
+        sm = map_sweep(mapper, s, *stage_inputs(torch, comp, s))
         secs.append(time.perf_counter() - t)
-    return mapper, secs
+        if sm is not None:
+            subs.append(sm)
+    return mapper, secs, subs
+
+
+LOOP_SCANS = 32
+LOOP_SIDE = 4
+
+
+def loop_config():
+    """The default SystemConfig with the loop gates cut to a 16-scan lap."""
+    from mvil_fusion_torch.config import GlobalMappingConfig, SystemConfig
+    return SystemConfig(global_mapping=GlobalMappingConfig(
+        skip_recent_poses=6, poses_before_reclosing=4,
+        proximity_threshold=4.0, max_tolerable_fitness=0.6))
+
+
+def make_loop_submaps(n=LOOP_SCANS, side=LOOP_SIDE):
+    """Keyed scans along a square path (`side` steps of 2.8 m a side) in a
+    40 × 34 × 8 m box room, 5000 rays each, with odometry that drifts by
+    N(0, 0.04) + (0.01, 0.008, 0) m per step: (submaps, true positions)."""
+    from mvil_fusion_torch.io.synthetic_lidar import BoxWorld
+    from mvil_fusion_torch.mapping.local_mapping import Submap
+    from mvil_fusion_torch.utils import nplie
+    rng = np.random.default_rng(SEED)
+    box = BoxWorld(room=(40.0, 34.0, 8.0))
+    p, yaw, drift = np.zeros(3), 0.0, np.zeros(3)
+    subs, truth = [], []
+    for k in range(n):
+        if k and k % side == 0:
+            yaw += np.pi / 2
+        if k:
+            p = p + 2.8 * np.asarray([np.cos(yaw), np.sin(yaw), 0.0])
+        q = np.asarray([np.cos(yaw / 2), 0, 0, np.sin(yaw / 2)])
+        dirs = rng.normal(size=(5000, 3))
+        dirs[:, 2] *= 0.25
+        dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+        rr = box.ray_range(p, dirs @ nplie.quat_to_mat(q).T)
+        pts_b = (dirs * rr[:, None])[rr < 60.0].astype(np.float32)
+        drift += rng.normal(scale=0.04, size=3) + np.asarray([0.01, 0.008,
+                                                              0])
+        f32 = np.float32
+        subs.append(Submap(t=float(k), p_w=(p + drift).astype(f32),
+                           q_w=q.astype(f32), pts=pts_b,
+                           odom_p=(p + drift).astype(f32),
+                           odom_q=q.astype(f32)))
+        truth.append(p.copy())
+    return subs, np.array(truth)
+
+
+def make_helix_graph(n=512, e=2048):
+    """A 512-node, 2048-edge pose graph as numpy arrays: a helix whose
+    chain drifts by N(0, 0.03) m per step, cross-braced up to the edge
+    budget with true relative positions; (arrays, true positions)."""
+    rng = np.random.default_rng(SEED + 5)
+    ident = np.asarray([1, 0, 0, 0], np.float32)
+    th = np.linspace(0, 8 * np.pi, n)
+    p_true = np.stack([10 * np.cos(th), 10 * np.sin(th),
+                       np.linspace(0, 12, n)], 1).astype(np.float32)
+    steps = np.diff(p_true, axis=0) + rng.normal(scale=0.03, size=(n - 1, 3))
+    p_est = np.concatenate([p_true[:1], p_true[0] + np.cumsum(steps, 0)])
+    e_i = np.concatenate([np.arange(n - 1), np.zeros(e - n + 1, int)])
+    e_j = np.concatenate([np.arange(1, n), np.zeros(e - n + 1, int)])
+    k = n - 1
+    while k < e:
+        i, j = sorted(rng.integers(0, n, 2).tolist())
+        if i != j:
+            e_i[k], e_j[k] = i, j
+            k += 1
+    e_w = np.where(np.arange(e) < n - 1, 10.0, 5.0).astype(np.float32)
+    arrays = dict(
+        p=p_est.astype(np.float32), q=np.tile(ident, (n, 1)),
+        node_mask=np.ones(n, bool), e_i=e_i, e_j=e_j,
+        e_dp=p_true[e_j] - p_true[e_i], e_dq=np.tile(ident, (e, 1)),
+        e_w=e_w, e_mask=np.ones(e, bool), z_node=np.zeros(64, int),
+        z_val=np.zeros(64, np.float32), z_w=np.zeros(64, np.float32),
+        z_mask=np.zeros(64, bool))
+    return arrays, p_true
+
+
+def timed_add(torch, gm, sm):
+    """add_submap with everything it queued finished: (info, ms, host
+    readbacks it made)."""
+    before = gm.readbacks
+    t = time.perf_counter()
+    info = gm.add_submap(sm)
+    torch.cuda.synchronize()
+    return info, 1e3 * (time.perf_counter() - t), gm.readbacks - before
+
+
+def phase_chained(torch, subs, sweeps, card):
+    """The local mapper's submaps through the global mapper."""
+    from mvil_fusion_torch.config import SystemConfig
+    from mvil_fusion_torch.mapping.global_mapping import GlobalMapper
+    gm = GlobalMapper(SystemConfig())
+    check(gm.device.type == "cuda" and gm.scans.is_cuda,
+          "the global mapper is not on the card")
+    runs = [timed_add(torch, gm, sm) for sm in subs]
+    reg, g = gm.last_registration, gm.cfg.global_mapping
+    period = gm.cfg.lidar.scan_period
+    at = min(range(len(sweeps)),
+             key=lambda i: abs(sweeps[i]["t0"] + period - subs[1].t))
+    err = float(np.linalg.norm(runs[1][0]["p"] - sweeps[at]["truth"]))
+    print(f"chained: {len(subs)} submaps of {[len(sm.pts) for sm in subs]} "
+          f"points: nodes {gm.n_nodes}, edges {gm.n_edges}; registration "
+          f"of node 1: fitness {reg['fitness']:.4f}, n_corr "
+          f"{reg['n_corr']}; node 1 is {err:.4f} m from the truth at sweep "
+          f"{at + 1}; add_submap {runs[0][1]:.2f} and {runs[1][1]:.2f} ms, "
+          f"readbacks {[r[2] for r in runs]} [{card}]", flush=True)
+    check(gm.n_nodes == 2 and gm.n_edges >= 1,
+          f"{gm.n_nodes} nodes, {gm.n_edges} edges")
+    check(reg["node"] == 1 and reg["fitness"] < g.max_tolerable_fitness
+          and reg["n_corr"] > 100, f"registration rejected: {reg}")
+    check(bool(np.isfinite(runs[1][0]["p"]).all()) and err < 0.10,
+          f"node 1 is {err} m from the truth")
+
+
+def phase_loop(torch, card):
+    """Two laps of the square loop at the default capacities; returns the
+    mapper."""
+    from mvil_fusion_torch.mapping import global_mapping as G
+    subs, truth = make_loop_submaps()
+    gm = G.GlobalMapper(loop_config())
+    check((gm.n_max, gm.e_max, gm.z_max) == (512, 2048, 512)
+          and gm.scans.shape == (512, 8192, 3), "not the default capacities")
+    runs = [timed_add(torch, gm, sm) for sm in subs]
+    est = np.array([p for _, p, _ in gm.trajectory()])
+    odom = np.array([sm.p_w for sm in subs])
+    lap = slice(LOOP_SCANS - 4 * LOOP_SIDE, LOOP_SCANS)
+    err = np.linalg.norm(est - truth, axis=1)[lap].mean()
+    odom_err = np.linalg.norm(odom - truth, axis=1)[lap].mean()
+    cloud = gm.global_map()
+    ms = [r[1] for r in runs]
+    closing = [k for k, r in enumerate(runs) if r[0]["closed_loop"]]
+    plain = sorted({r[2] for r in runs[1:] if not r[0]["closed_loop"]})
+    print(f"loop: {LOOP_SCANS} keyed scans, two laps: nodes {gm.n_nodes}, "
+          f"edges {gm.n_edges}, loops closed {gm.loops_closed} at scans "
+          f"{closing} {gm.loop_pairs}; last-lap mean position error "
+          f"{err:.4f} m (odometry {odom_err:.4f} m); global map "
+          f"{len(cloud)} points; add_submap median "
+          f"{statistics.median(ms[1:]):.2f} ms, max {max(ms[1:]):.2f} ms "
+          f"(scan {int(np.argmax(ms[1:])) + 1}); readbacks per add_submap: "
+          f"first 0, without a loop {plain}, loop-closing "
+          f"{[runs[k][2] for k in closing]} [{card}]", flush=True)
+    check(gm.n_nodes == LOOP_SCANS, f"{gm.n_nodes} nodes")
+    check(gm.loops_closed >= 1, "no loop closed")
+    check(bool(np.isfinite(est).all()) and bool(
+        np.isfinite(gm.q_host).all()), "a pose is not finite")
+    check(err < odom_err, f"last-lap error {err} not below the odometry's "
+                          f"{odom_err}")
+    check(len(cloud) > 1000 and bool(np.isfinite(cloud).all()),
+          f"global map of {len(cloud)} points")
+    check(runs[0][2] == 0 and plain == [1],
+          f"readbacks without a loop: first {runs[0][2]}, later {plain}")
+    return gm
+
+
+def phase_solver(torch, gm, card):
+    """solve_cg at capacity, then the registration's two parts alone on
+    the loop run's scans."""
+    from mvil_fusion_torch.mapping import global_mapping as G
+    from mvil_fusion_torch.mapping import pose_graph as pg
+    from mvil_fusion_torch.ops import vgicp, voxel
+    arrays, p_true = make_helix_graph()
+    graph = pg.graph_from_numpy(arrays)
+    check(graph.p.is_cuda, "the graph is not on the card")
+    kw = dict(iters=8, cg_iters=64)
+    stats, exact = {}, {}
+    out = pg.solve_cg(graph, stats=stats, **kw)
+    pg.solve_cg(graph, check_every=1, stats=exact, **kw)
+    err0 = np.linalg.norm(arrays["p"] - p_true, axis=1).max()
+    err1 = np.linalg.norm(out.p.cpu().numpy() - p_true, axis=1).max()
+    ms = time_ms(torch, lambda: pg.solve_cg(graph, **kw), reps=5, warmup=1)
+    print(f"solver: solve_cg at 512 nodes, 2048 edges: max error "
+          f"{err0:.4f} -> {err1:.4f} m; {ms:.2f} ms per solve; "
+          f"{exact['lm_queued']} LM and {exact['cg_queued']} CG iterations "
+          f"taken ({stats['cg_queued']} queued), {stats['syncs']} host "
+          f"syncs per solve [{card}]", flush=True)
+    check(bool(np.isfinite(err1)) and err1 < 0.2 * err0,
+          f"solve_cg: max error {err0} -> {err1}")
+
+    leaf, lid = gm.cfg.lidar.vgicp_resolution, gm.cfg.lidar
+    ref_pts, ref_mask = gm._world_scans(range(5))
+    ref_pts, ref_mask = ref_pts.reshape(-1, 3), ref_mask.reshape(-1)
+    scan, scan_mask = gm.scans[5], gm.scan_masks[5]
+
+    def build_ref():
+        return voxel.build_gaussian_voxel_map(ref_pts, ref_mask, leaf,
+                                              table_size=G.REF_TABLE)
+
+    ref_map = build_ref()
+    src_map = voxel.build_gaussian_voxel_map(scan, scan_mask, leaf,
+                                             table_size=G.SCAN_TABLE)
+    reg = voxel.voxel_downsample(scan, scan_mask, leaf, G.REG_POINTS,
+                                 table_size=G.SCAN_TABLE)
+    p0 = torch.as_tensor(gm.p_host[5]).to(gm.device)
+    q0 = torch.as_tensor(gm.q_host[5]).to(gm.device)
+
+    def align():
+        return vgicp.vgicp_align(reg.pts, reg.mask, ref_map, src_map, p0, q0,
+                                 iters=lid.vgicp_iters,
+                                 max_corr_dist=lid.max_corr_dist)
+
+    res = align()
+    n_corr, fitness = int(res.n_corr), float(res.fitness)
+    build_ms = time_ms(torch, build_ref, reps=10, warmup=2)
+    align_ms = time_ms(torch, align, reps=10, warmup=2)
+    print(f"solver: build_gaussian_voxel_map of {int(ref_mask.sum())} live "
+          f"points in {ref_pts.shape[0]} (table 2^17): {build_ms:.3f} ms; "
+          f"vgicp_align of {int(reg.mask.sum())} points in "
+          f"{G.REG_POINTS}, {lid.vgicp_iters} iterations: {align_ms:.3f} ms "
+          f"(n_corr {n_corr}, fitness {fitness:.4f}) [{card}]", flush=True)
+    check(n_corr > 100 and fitness < 0.6,
+          f"vgicp_align alone: n_corr {n_corr}, fitness {fitness}")
 
 
 def main() -> int:
@@ -392,7 +626,7 @@ def main() -> int:
 
     # 4. the slice on the card
     K.knn_topk_cuda.launches = 0
-    mapper, secs = run_slice(torch, sweeps, "cuda:0")
+    mapper, secs, subs = run_slice(torch, sweeps, "cuda:0")
     launches = K.knn_topk_cuda.launches
     torch.cuda.synchronize()
     est = np.array([p for _, p, _ in mapper.trajectory])
@@ -415,6 +649,10 @@ def main() -> int:
           f"{mapper.submaps_emitted} submaps, expected 2")
     check(launches == 6 * N_SWEEPS,
           f"{launches} knn launches, expected {6 * N_SWEEPS}")
+
+    # 5-7. the global-mapping stage on the card
+    phase_chained(torch, subs, sweeps, card)
+    phase_solver(torch, phase_loop(torch, card), card)
 
     print(json.dumps({"kernels": [{
         "name": "knn_topk", "route": "cuda",

@@ -1,11 +1,13 @@
-"""Voxel hashing primitives: downsampling and closed-form sym3 eigen.
+"""Voxel hashing primitives: downsampling and Gaussian voxel statistics.
 
-Counterpart of ``mvil_fusion_tpu/ops/voxel.py``, the parts the LOAM
-mapping stage uses: ``sym3_eigvals``, ``sym3_eigvec``, ``voxel_coords``,
-``hash_coords`` and ``voxel_downsample``.  The spatial hash reproduces the
-reference's bucket ids bit for bit (int32 products that wrap, ``abs`` of
-INT_MIN staying INT_MIN, a floor-mod), so that both packages lay their
-maps out in the same slot order.
+Counterpart of ``mvil_fusion_tpu/ops/voxel.py``: closed-form sym3 eigen,
+the spatial hash, ``voxel_downsample``, and the Gaussian voxel map with
+its single-voxel and 7-neighbour lookups.  Trees and k-NN are replaced by
+a single-probe spatial hash with stored voxel coordinates for collision
+rejection.  The hash reproduces the reference's bucket ids bit for bit
+(int32 products that wrap, ``abs`` of INT_MIN staying INT_MIN, a
+floor-mod), so that both packages lay their maps out in the same slot
+order.  Nothing here waits for the device.
 """
 
 from __future__ import annotations
@@ -107,3 +109,114 @@ def voxel_downsample(pts: torch.Tensor, mask: torch.Tensor, leaf: float,
                            device=pts.device)
     out_mask[slot] = occ
     return VoxelDownsample(pts=out[:max_out], mask=out_mask[:max_out])
+
+
+def _smallest_eigvec_sym3(A: torch.Tensor) -> torch.Tensor:
+    _, lam1, lam2 = sym3_eigvals(A)
+    fallback = torch.eye(3, dtype=A.dtype, device=A.device)[2]
+    return sym3_eigvec(A, lam1, lam2, fallback)
+
+
+class GaussianVoxelMap(NamedTuple):
+    """Per-voxel Gaussian statistics in a single-probe hash table."""
+
+    mean: torch.Tensor     # (H,3)
+    cov: torch.Tensor      # (H,3,3)
+    count: torch.Tensor    # (H,)
+    coords: torch.Tensor   # (H,3) int32 owner voxel coords (for collision
+                           # rejection; the highest point index wins a
+                           # contested bucket)
+    leaf: float
+    table_size: int
+
+
+def build_gaussian_voxel_map(pts: torch.Tensor, mask: torch.Tensor,
+                             leaf: float, table_size: int = 1 << 18,
+                             min_points: int = 2,
+                             plane_eps: float = 1e-3) -> GaussianVoxelMap:
+    """Voxel means + covariances via scatter-add (one pass, no k-NN).
+
+    Covariances get fast_gicp's PLANE regularization: eigenvalues replaced
+    by (1, 1, eps) (reference: fast_gicp RegularizationMethod::PLANE), so
+    the Mahalanobis weight carries direction only and magnitudes are
+    normalized.
+
+    Where two voxels hash to one bucket, the voxel of the highest-indexed
+    unmasked point owns it (the reference writes its points in order, so
+    its last writer is the same one) and the other voxel's points are
+    dropped.  The winner is chosen by a scatter-max of point indices, so
+    `coords` and `count` are the same from run to run on a card too;
+    `mean` and `cov` are summed there with float atomics and vary in
+    their last bits, which `cov = E[xxᵀ] − mean·meanᵀ` in fp32 at world
+    coordinates amplifies.
+    """
+    dtype, dev = pts.dtype, pts.device
+    n_pts = pts.shape[0]
+    c = voxel_coords(pts, leaf)
+    h = hash_coords(c, table_size)
+    # purity pass: claim buckets, then accumulate only points whose voxel
+    # owns their bucket — hash collisions drop the losing voxel instead of
+    # corrupting the winner's statistics.  Masked points claim a spare row.
+    h_masked = torch.where(mask, h, table_size)
+    winner = torch.full((table_size + 1,), -1, dtype=torch.int64, device=dev)
+    winner.scatter_reduce_(0, h_masked, torch.arange(n_pts, device=dev),
+                           "amax", include_self=True)
+    winner = winner[:table_size]
+    coords = torch.where((winner >= 0)[:, None], c[winner.clamp_min(0)],
+                         _INT32_MIN).to(torch.int32)
+    mine = torch.all(coords[h] == c, dim=-1) & mask
+    w = mine.to(dtype)
+    s1 = pts.new_zeros((table_size, 3)).index_add_(0, h, pts * w[:, None])
+    s2 = pts.new_zeros((table_size, 3, 3)).index_add_(
+        0, h, (pts[:, :, None] * pts[:, None, :]) * w[:, None, None])
+    n = pts.new_zeros((table_size,)).index_add_(0, h, w)
+    n_safe = n.clamp_min(1.0)
+    mean = s1 / n_safe[:, None]
+    cov = s2 / n_safe[:, None, None] - mean[:, :, None] * mean[:, None, :]
+    # PLANE regularization: eigenvalues → (1, 1, eps), written as
+    # I − (1−eps)·v₀v₀ᵀ with v₀ the smallest eigenvector in closed form
+    # (Cardano eigenvalues + Cayley-Hamilton projector)
+    eye = torch.eye(3, dtype=dtype, device=dev)
+    v0 = _smallest_eigvec_sym3(cov + 1e-9 * eye)
+    cov = eye[None] - (1.0 - plane_eps) * v0[:, :, None] * v0[:, None, :]
+    count = torch.where(n >= min_points, n, 0.0)
+    return GaussianVoxelMap(mean=mean, cov=cov, count=count, coords=coords,
+                            leaf=leaf, table_size=table_size)
+
+
+def lookup(vm: GaussianVoxelMap, pts: torch.Tensor):
+    """Query the voxel containing each point.
+
+    Returns (mean (N,3), cov (N,3,3), hit (N,)).  A hit requires the stored
+    owner coords to match (hash-collision rejection)."""
+    c = voxel_coords(pts, vm.leaf)
+    h = hash_coords(c, vm.table_size)
+    hit = (vm.count[h] > 0) & torch.all(vm.coords[h] == c, dim=-1)
+    return vm.mean[h], vm.cov[h], hit
+
+
+def _neighbor7(device) -> torch.Tensor:
+    """(7,3) int32 offsets: the voxel itself, then ±x, ±y, ±z.  Built on
+    the device by arithmetic: a host table would be copied there at every
+    call, which waits for the stream."""
+    k = torch.arange(7, device=device)[:, None]
+    axis = torch.arange(3, device=device)[None, :]
+    on = (k > 0) & (axis == torch.div(k - 1, 2, rounding_mode="floor"))
+    return (on * (2 * (k % 2) - 1)).to(torch.int32)
+
+
+def lookup7(vm: GaussianVoxelMap, pts: torch.Tensor):
+    """Query the containing voxel and its 6 face neighbors, returning the
+    nearest-mean valid hit (fast_gicp's DIRECT7 neighborhood mode).  Widens
+    the convergence basin vs center-only.  Among equally near hits the
+    first in the order (self, +x, −x, +y, −y, +z, −z) wins."""
+    c = voxel_coords(pts, vm.leaf)                          # (N,3)
+    cn = c[:, None, :] + _neighbor7(pts.device)[None, :, :]  # (N,7,3)
+    h = hash_coords(cn, vm.table_size)                      # (N,7)
+    mean = vm.mean[h]                                       # (N,7,3)
+    hit = (vm.count[h] > 0) & torch.all(vm.coords[h] == cn, dim=-1)
+    d2 = torch.sum((mean - pts[:, None, :]) ** 2, dim=-1)
+    d2 = torch.where(hit, d2, torch.inf)
+    d2_best, best = torch.min(d2, dim=-1)                   # (N,)
+    h_best = torch.gather(h, 1, best[:, None])[:, 0]
+    return vm.mean[h_best], vm.cov[h_best], torch.isfinite(d2_best)

@@ -4,6 +4,7 @@
     python3 profile_slice.py [--trace-dir build/profile]
     python3 profile_slice.py --knn [--splits 1,8,16,64] [--package-root DIR]
     python3 profile_slice.py --drift-runs N [--package-root DIR]
+    python3 profile_slice.py --global [--trace-dir build/profile]
 
 Drives the drift run of chip_smoke.py (40 sweeps of 16 × 900 points at the
 default SystemConfig) on cuda:0, each phase on a fresh mapper:
@@ -44,6 +45,28 @@ one card:
 With --drift-runs N it repeats the drift run N times instead and prints
 each run's mapped error: the card's float atomics make the maps, and so
 the poses, vary from run to run of the same code.
+
+With --global it profiles the global-mapping stage instead, on the loop
+run of chip_smoke.py (two laps, 32 keyed scans, default capacities), each
+pass on a fresh GlobalMapper:
+
+1. wall: ms per add_submap, everything it queued finished, split into
+   registration (reference map + VGICP of the new scan), descriptor,
+   loop search (candidates and their verification by registration), solve
+   (solve_cg and the pose refresh) and the rest; medians over the
+   add_submaps without a loop and over the loop-closing ones;
+2. profile: torch.profiler over scans 2–14 (no loop) and over scan 15
+   alone (the first loop-closing one): device ms and kernel launches per
+   add_submap, the device's busy share of the wall, device ms by kernel
+   group (tables to --trace-dir);
+3. syncs: the host syncs of each add_submap of the first lap, counted by
+   torch.cuda's sync debug mode, beside the mapper's own count of its
+   readbacks;
+4. spread: how far the card's float atomics move the results from run to
+   run of the same code: the 5-scan reference voxel map built twice
+   (means, plane normals, owners and counts), and the whole loop run
+   three times (decisions, last-lap error, largest pose difference from
+   the first run).
 """
 
 from __future__ import annotations
@@ -54,6 +77,7 @@ import pathlib
 import re
 import statistics
 import sys
+import time
 import warnings
 
 import chip_smoke as smoke
@@ -228,12 +252,174 @@ def drift_spread(torch, sweeps, runs: int, card) -> None:
     import numpy as np
     truth = np.array([s["truth"] for s in sweeps])
     for i in range(runs):
-        mapper, _ = smoke.run_slice(torch, sweeps, "cuda:0")
+        mapper, _, _ = smoke.run_slice(torch, sweeps, "cuda:0")
         est = np.array([p for _, p, _ in mapper.trajectory])
         err = np.linalg.norm(est - truth, axis=1)
         print(f"drift run {i + 1}: mapped error mean {err.mean():.4f} m, "
               f"max {err.max():.4f} m; submaps {mapper.submaps_emitted} "
               f"[{card}]", flush=True)
+
+
+def _split_timers(torch, gm):
+    """Wrap the mapper's parts so that each call adds its ms, with the
+    device drained before and after, to the returned dict."""
+    acc = collections.Counter()
+    state = {"in_loop": False}
+
+    def wrap(name, part, is_loop=False):
+        inner = getattr(gm, name)
+
+        def timed(*a, **kw):
+            if state["in_loop"] and not is_loop:
+                return inner(*a, **kw)      # a verification: loop search
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state["in_loop"] = state["in_loop"] or is_loop
+            try:
+                return inner(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                if is_loop:
+                    state["in_loop"] = False
+                acc[part] += 1e3 * (time.perf_counter() - t)
+
+        setattr(gm, name, timed)
+
+    wrap("_reference_map", "registration")
+    wrap("_register", "registration")
+    wrap("_store_descriptor", "descriptor")
+    wrap("_try_radius_loop", "loop search", is_loop=True)
+    wrap("_try_sc_loop", "loop search", is_loop=True)
+    wrap("_solve", "solve")
+    return acc
+
+
+def global_wall(torch, subs, card) -> None:
+    """Pass 1 of --global: wall ms per add_submap, split by part."""
+    from mvil_fusion_torch.mapping.global_mapping import GlobalMapper
+    parts = ("registration", "descriptor", "loop search", "solve", "rest")
+    gm = GlobalMapper(smoke.loop_config())
+    acc = _split_timers(torch, gm)
+    rows = []
+    for sm in subs:
+        acc.clear()
+        info, ms, reads = smoke.timed_add(torch, gm, sm)
+        row = dict(acc, total=ms, closed=info["closed_loop"], reads=reads)
+        row["rest"] = ms - sum(acc.values())
+        rows.append(row)
+    for what, sel in (("without a loop", [r for r in rows[1:]
+                                          if not r["closed"]]),
+                      ("loop-closing", [r for r in rows if r["closed"]])):
+        med = lambda key: statistics.median(r.get(key, 0.0) for r in sel)
+        print(f"wall: {len(sel)} add_submaps {what}: median "
+              f"{med('total'):.2f} ms = " + ", ".join(
+                  f"{p} {med(p):.2f}" for p in parts)
+              + f"; readbacks {sorted({r['reads'] for r in sel})} [{card}]",
+              flush=True)
+
+
+def global_profile(torch, subs, card, trace_dir: pathlib.Path) -> None:
+    """Pass 2 of --global: torch.profiler over scans 2-14, which close no
+    loop, and over scan 15, which closes the first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    from mvil_fusion_torch.mapping.global_mapping import GlobalMapper
+    gm = GlobalMapper(smoke.loop_config())
+    gm.add_submap(subs[0])
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    for what, batch in (("without a loop", subs[1:14]),
+                        ("loop-closing", subs[14:15])):
+        torch.cuda.synchronize()
+        closed_before = gm.loops_closed
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with torch_profile(activities=acts) as prof:
+            t = time.perf_counter()
+            for sm in batch:
+                gm.add_submap(sm)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t)
+        smoke.check(gm.loops_closed - closed_before
+                    == (what == "loop-closing"), f"{what}: loops closed")
+        groups: dict[str, float] = {}
+        launches = 0
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA:
+                g = _group(ev.key)
+                groups[g] = groups.get(g, 0.0) + ev.device_time_total / 1e3
+            if ev.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+                launches += ev.count
+        (trace_dir / f"global_key_averages_{what.split()[0]}.txt").write_text(
+            prof.key_averages().table(sort_by="self_device_time_total",
+                                      row_limit=60))
+        n, busy = len(batch), sum(groups.values())
+        print(f"profile: {n} add_submap(s) {what}, under torch.profiler: "
+              f"wall {wall / n:.2f} ms, device {busy / n:.3f} ms and "
+              f"{launches / n:.0f} kernel launches per add_submap; busy "
+              f"share {busy / wall:.3f}, idle share {1 - busy / wall:.3f}; "
+              "device ms by group: " + ", ".join(
+                  f"{g} {ms / n:.3f}" for g, ms in sorted(
+                      groups.items(), key=lambda kv: -kv[1]))
+              + f" [{card}]", flush=True)
+
+
+def global_syncs(torch, subs, card) -> None:
+    """Pass 3 of --global: host syncs per add_submap of the first lap."""
+    from mvil_fusion_torch.mapping.global_mapping import GlobalMapper
+    gm = GlobalMapper(smoke.loop_config())
+    counts = []
+    for sm in subs[:16]:
+        before = gm.readbacks
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                info = gm.add_submap(sm)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("called a synchronizing" in str(w.message)
+                    for w in caught)
+        counts.append((syncs, gm.readbacks - before, info["closed_loop"]))
+    print("syncs: per add_submap of the first lap, (syncs seen by the debug "
+          "mode, readbacks the mapper counted): "
+          + ", ".join(f"{'loop ' if c else ''}({s}, {r})"
+                      for s, r, c in counts) + f" [{card}]", flush=True)
+
+
+def global_spread(torch, subs, truth, card, runs: int = 3) -> None:
+    """Pass 4 of --global: run-to-run spread on the card."""
+    import numpy as np
+    from mvil_fusion_torch.mapping import global_mapping as G
+    from mvil_fusion_torch.ops import voxel
+    results = []
+    for _ in range(runs):
+        gm = G.GlobalMapper(smoke.loop_config())
+        for sm in subs:
+            gm.add_submap(sm)
+        results.append((gm.p_host[:len(subs)].copy(), gm.mapping_stats(),
+                        list(gm.loop_pairs)))
+    pts, mask = gm._world_scans(range(5))
+    maps = [voxel.build_gaussian_voxel_map(
+        pts.reshape(-1, 3), mask.reshape(-1), gm.cfg.lidar.vgicp_resolution,
+        table_size=G.REF_TABLE) for _ in range(2)]
+    occ = maps[0].count > 0
+    dcov = (maps[0].cov - maps[1].cov).abs().flatten(1).amax(1)[occ]
+    print(f"spread: the reference voxel map built twice ({int(occ.sum())} "
+          f"voxels): owners and counts equal "
+          f"{torch.equal(maps[0].coords, maps[1].coords)} and "
+          f"{torch.equal(maps[0].count, maps[1].count)}; max |mean "
+          f"difference| {float((maps[0].mean - maps[1].mean).abs().max()):.3g}"
+          f" m; share of voxels whose regularized covariance differs by "
+          f"more than 1e-2: {float((dcov > 1e-2).float().mean()):.3f} "
+          f"[{card}]", flush=True)
+    lap = slice(len(subs) - 16, len(subs))
+    for i, (p, stats, pairs) in enumerate(results):
+        err = np.linalg.norm(p - truth, axis=1)[lap].mean()
+        d = np.abs(p - results[0][0])
+        print(f"spread: loop run {i + 1}: {stats['loops_closed']} loops "
+              f"{pairs}, {stats['edges']} edges; last-lap mean error "
+              f"{err:.4f} m; from run 1: max |dxy| {d[:, :2].max():.4f} m, "
+              f"max |dz| {d[:, 2].max():.4f} m [{card}]", flush=True)
 
 
 def main() -> int:
@@ -248,6 +434,9 @@ def main() -> int:
     ap.add_argument("--drift-runs", type=int, default=0, metavar="N",
                     help="repeat the drift run N times, print each run's "
                          "mapped error and stop")
+    ap.add_argument("--global", dest="global_stage", action="store_true",
+                    help="profile the global-mapping stage on the loop run "
+                         "and stop")
     ap.add_argument("--package-root", default=None,
                     help="take mvil_fusion_torch from this checkout")
     args = ap.parse_args()
@@ -263,6 +452,13 @@ def main() -> int:
     print(f"package: {pathlib.Path(mvil_fusion_torch.__file__).parent}",
           flush=True)
     set_fp32_policy()
+    if args.global_stage:
+        subs, truth = smoke.make_loop_submaps()
+        global_wall(torch, subs, card)
+        global_profile(torch, subs, card, pathlib.Path(args.trace_dir))
+        global_syncs(torch, subs, card)
+        global_spread(torch, subs, truth, card)
+        return 0
     K._launcher()
     sweeps = smoke.make_sweeps()
     if args.knn:
@@ -278,7 +474,7 @@ def main() -> int:
           + "".join(f"; {k} x{n}" for k, n in sites.most_common()),
           flush=True)
 
-    _, secs = smoke.run_slice(torch, sweeps, "cuda:0")
+    _, secs, _ = smoke.run_slice(torch, sweeps, "cuda:0")
     wall = 1e3 * statistics.median(secs[1:])
     print(f"wall: {wall:.3f} ms per sweep (median of sweeps 2-"
           f"{len(sweeps)}) [{card}]", flush=True)

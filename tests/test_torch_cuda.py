@@ -10,20 +10,31 @@ tests/test_pallas_knn.py (d2 rtol 1e-4 / atol 1e-3 where finite, index
 agreement ≥ 0.99 where finite); the slice on the card to the slice on the
 CPU within 1e-2 m (float atomics and FMA contraction on the card sum in
 another order, and the LOAM plane gates amplify that to mm-level pose
-differences).
+differences).  The global-mapping stage on the card is held to the stage
+on the CPU: the same decisions, horizontal position within 2 cm, height
+within 0.4 m, rotation within 4°.  Height, roll and pitch of that loop
+hang on plane normals that are rounding noise (see
+tests/test_torch_global_mapping.py): runs of the same code on an H100
+differed by 2–7 mm horizontally and 3–20 cm in height.
 """
+
+import warnings
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from mvil_fusion_torch.config import SystemConfig
 from mvil_fusion_torch.frontend.lidar_compensator import LidarCompensator
 from mvil_fusion_torch.io.synthetic import SyntheticTrajectory
 from mvil_fusion_torch.io.synthetic_lidar import BoxWorld, simulate_sweep
+from mvil_fusion_torch.mapping.global_mapping import GlobalMapper
 from mvil_fusion_torch.mapping.local_mapping import LocalMapper
 from mvil_fusion_torch.ops import deskew
 from mvil_fusion_torch.ops import knn_topk as K
+from mvil_fusion_torch.ops import scancontext, voxel
+from mvil_fusion_torch.utils import nplie
 
 pytestmark = pytest.mark.cuda
 
@@ -252,3 +263,95 @@ def test_deferred_mode_on_card(cuda):
     pos_d, subs_d, _ = _drive(cuda, defer=True)
     assert subs_d == subs_s
     assert np.abs(pos_d - pos_s).max() < 1e-2
+
+
+# ---------------------------------------------------------------------------
+# global mapping
+# ---------------------------------------------------------------------------
+
+def _loop(n=16):
+    """(config, keyed scans) of chip_smoke.py's square loop, one lap."""
+    return chip_smoke.loop_config(), chip_smoke.make_loop_submaps(n=n)[0]
+
+
+def _run_loop(device, cfg, subs):
+    gm = GlobalMapper(cfg, device=device)
+    infos = [gm.add_submap(sm) for sm in subs]
+    return gm, infos
+
+
+def test_global_stage_on_card_matches_cpu(cuda):
+    cfg, subs = _loop()
+    gc, ic = _run_loop(cuda, cfg, subs)
+    gh, ih = _run_loop("cpu", cfg, subs)
+    assert gc.scans.is_cuda and gc.graph.p.is_cuda and gc.sc_desc.is_cuda
+    assert gc.mapping_stats() == gh.mapping_stats()
+    assert gc.loops_closed >= 1 and gc.loop_pairs == gh.loop_pairs
+    assert gc.floor_ids == gh.floor_ids
+    for a, b in zip(ic, ih):
+        assert (a["node"], a["floor"], a["closed_loop"]) == \
+            (b["node"], b["floor"], b["closed_loop"])
+        d = np.asarray(a["p"], np.float64) - np.asarray(b["p"], np.float64)
+        dq = nplie.quat_mul(nplie.quat_conj(b["q"]), a["q"])
+        assert np.linalg.norm(d[:2]) < 2e-2 and abs(d[2]) < 0.4
+        assert 2 * np.linalg.norm(dq[1:]) < np.radians(4.0)
+    # descriptors are a max: the card's equal the CPU's bit for bit
+    assert torch.equal(gc.sc_desc.cpu(), gh.sc_desc)
+    assert np.array_equal(gc.p_host, gc.graph.p.cpu().numpy())
+
+
+def test_readbacks_per_submap_on_card(cuda):
+    """The host syncs of an add_submap, as torch.cuda's sync debug mode
+    sees them, are the readbacks the mapper counts: none for the first
+    submap, one (the registration result) for each later one without a
+    loop; uploads do not wait."""
+    cfg, subs = _loop(n=8)
+    gm = GlobalMapper(cfg, device=cuda)
+    seen = []
+    for sm in subs:
+        before = gm.readbacks
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                info = gm.add_submap(sm)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        assert not info["closed_loop"]
+        syncs = sum("called a synchronizing" in str(w.message)
+                    for w in caught)
+        seen.append((syncs, gm.readbacks - before))
+    assert seen == [(0, 0)] + [(1, 1)] * 7
+
+
+def test_descriptor_and_voxel_owners_are_the_same_every_run(cuda):
+    """A float max and an index max do not depend on the order of their
+    writers: two runs on the card give the same bits.  The means and
+    covariances, summed with float atomics, need not: on an H100 the
+    mapper's 5-scan reference map built twice had means within 4e-6 m and
+    a different plane normal in 2.5–2.8 % of its voxels."""
+    rng = np.random.default_rng(0)
+    pts = torch.as_tensor(rng.uniform(-20, 20, (40960, 3)).astype(
+        np.float32), device=cuda)
+    pts[:, 2] *= 0.1
+    mask = torch.as_tensor(rng.uniform(size=40960) > 0.3, device=cuda)
+    # a table this small is contested: owners are decided by index
+    maps = [voxel.build_gaussian_voxel_map(pts, mask, 0.5, table_size=1 << 12)
+            for _ in range(2)]
+    assert torch.equal(maps[0].coords, maps[1].coords)
+    assert torch.equal(maps[0].count, maps[1].count)
+    host = voxel.build_gaussian_voxel_map(pts.cpu(), mask.cpu(), 0.5,
+                                          table_size=1 << 12)
+    assert torch.equal(maps[0].coords.cpu(), host.coords)
+    assert torch.equal(maps[0].count.cpu(), host.count)
+    torch.testing.assert_close(maps[0].mean.cpu(), host.mean, rtol=0,
+                               atol=1e-4)
+    descs = [scancontext.make_descriptor(pts, mask) for _ in range(2)]
+    assert torch.equal(descs[0], descs[1])
+    assert torch.equal(descs[0].cpu(),
+                       scancontext.make_descriptor(pts.cpu(), mask.cpu()))
+
+
+def test_global_mapper_defaults_to_the_card(cuda):
+    gm = GlobalMapper(SystemConfig())
+    assert gm.device.type == "cuda" and gm.graph.e_i.is_cuda
