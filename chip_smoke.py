@@ -46,7 +46,35 @@ Phases, one line each (any failure raises and the script exits non-zero):
    fall below a fifth; ms per solve (CUDA events, median of 5), LM and CG
    iterations taken and host syncs per solve.  Then vgicp_align and
    build_gaussian_voxel_map alone at the mapper's shapes (an 8192-point
-   scan, a 5 × 8192-point reference, 12 iterations): ms each.
+   scan, a 5 × 8192-point reference, 12 iterations): ms each;
+8. tracker: the KLT front end at the default SystemConfig (640×480,
+   CLAHE, 3 pyramid levels, 21×21 window, 10 iterations, 256 slots for 150
+   features, min_dist 30, 256 RANSAC hypotheses, the pinhole-radtan
+   camera, publishing at 10 Hz) on 60 images at 30 Hz rendered by
+   SyntheticWorld.render_image (1800 landmarks on a shell 14 to 40 m away,
+   seed 0, 190–240 dots in view) along the default SyntheticTrajectory,
+   through FeatureTracker.process on cuda:0.  One pass counts the host
+   syncs of every image (torch.cuda's sync debug mode) and times it (host
+   clock, device drained); a second, on the same images, reads every
+   image's table back and holds it against the landmarks' true
+   projections.  Gates: 17–23 of the 60 images publish;
+   every published frame after the first has ≥ 60 valid features; of the
+   features alive for ≥ 5 images, ≥ 80 % stay within 1.5 px of the
+   projection of the landmark they started on, taken at the offset from
+   its centre at which they started (a dot's corner response peaks on its
+   flank); a feature that survives
+   from one published frame to the next keeps its id and a new one gets a
+   higher id than any before; an image 2 s after the last restarts every
+   track with new ids; no host sync on an unpublished image, one on a
+   published one.  Prints ms per image (median, maximum), and kernel
+   launches and device busy ms per image (torch.profiler over 10 images);
+9. imu: preintegrate_batch on 6 intervals of 0.3 s of the same
+   trajectory's ideal 200 Hz stream in 64 slots each: imu_residual against
+   the true states below 1e-3 in every component, P symmetric and positive
+   definite; triangulate_window at 256 features × 7 frames on the true
+   camera poses and the landmarks' true normalized projections: depth
+   within 2 % for every feature seen with ≥ 1.5° of parallax.  Prints ms
+   per call, kernel launches and host syncs of each.
 
 The second-to-last line is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}.  Neither JAX nor the JAX package is
@@ -60,6 +88,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -591,6 +620,305 @@ def phase_solver(torch, gm, card):
           f"vgicp_align alone: n_corr {n_corr}, fitness {fitness}")
 
 
+# ---------------------------------------------------------------------------
+# the sensor front ends of mono VIO: phases 8 and 9
+# ---------------------------------------------------------------------------
+
+TRACK_IMAGES = 60
+TRACK_RATE = 30.0
+TRACK_T0 = 1.0
+TRACK_LANDMARKS = 1800
+TRACK_RADIUS = 40.0      # landmarks on a shell 14 to 40 m away
+# camera in the body frame: looking along the body's x axis, y to the right
+RIC = np.asarray([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+TIC = np.asarray([0.05, -0.02, 0.01])
+IMU_INTERVALS = 6
+IMU_INTERVAL_S = 0.3
+
+
+def count_syncs(torch, fn):
+    """(fn's result, the host syncs it made) by torch.cuda's sync debug
+    mode."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing" in str(w.message)
+                    for w in caught)
+
+
+def profile_device(torch, fn):
+    """fn() under torch.profiler: (kernel launches, device ms, {kernel
+    name: [count, device ms]})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches, kernels = 0, {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            kernels[ev.key] = [ev.count, ev.device_time_total / 1e3]
+        if ev.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            launches += ev.count
+    return launches, sum(ms for _, ms in kernels.values()), kernels
+
+
+def make_camera_world():
+    """The default trajectory with TRACK_LANDMARKS landmarks around it, and
+    the default camera's pinhole parameters for project/render_image."""
+    from mvil_fusion_torch.config import SystemConfig
+    from mvil_fusion_torch.io.synthetic import (SyntheticTrajectory,
+                                                SyntheticWorld)
+    cam = SystemConfig().camera
+    world = SyntheticWorld(traj=SyntheticTrajectory(duration=8.0),
+                           n_landmarks=TRACK_LANDMARKS,
+                           landmark_radius=TRACK_RADIUS, seed=SEED)
+    view = dict(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, width=cam.width,
+                height=cam.height)
+    return world, view
+
+
+def make_track_images(world, view, n=TRACK_IMAGES):
+    """[(t, uint8 image, true pixel of every landmark, its visibility)]."""
+    frames = []
+    for k in range(n):
+        t = TRACK_T0 + k / TRACK_RATE
+        uv, _, _, vis = world.project(t, RIC, TIC, **view)
+        img = world.render_image(t, RIC, TIC, **view)
+        frames.append((t, np.round(img).astype(np.uint8), uv, vis))
+    return frames
+
+
+def track_accuracy(frames, tables, min_age=5, radius=1.5):
+    """Features against the truth.  `tables` holds every image's (ids, uv,
+    valid).  A feature starts on the visible landmark nearest to where it
+    was born, at some offset from its centre (the Shi-Tomasi response of a
+    dot peaks on its flank, up to 3 px out; a feature born farther from
+    any dot counts as wrong from the start).  Each later sighting at an
+    age ≥ min_age is right if it lies within `radius` of that landmark's
+    projection carrying the same offset.  Returns (sightings, share
+    right)."""
+    born = {}
+    right = total = 0
+    for (_, _, uv, vis), (ids, pts, valid) in zip(frames, tables):
+        for i, p in zip(ids[valid], pts[valid]):
+            if i not in born:
+                d = np.linalg.norm(uv - p, axis=1)
+                d[~vis] = np.inf
+                j = int(np.argmin(d))
+                born[i] = [j if d[j] < 3.0 else None, p - uv[j], 0]
+            lm, offset, age = born[i]
+            born[i][2] = age + 1
+            if age + 1 >= min_age:
+                total += 1
+                right += lm is not None and bool(
+                    np.linalg.norm(p - uv[lm] - offset) < radius)
+    return total, right / max(total, 1)
+
+
+def phase_tracker(torch, card):
+    """The KLT front end on rendered images; see the module docstring."""
+    from mvil_fusion_torch.config import SystemConfig
+    from mvil_fusion_torch.frontend.feature_tracker import FeatureTracker
+    cfg = SystemConfig()
+    tk = cfg.tracker
+    world, view = make_camera_world()
+    frames = make_track_images(world, view)
+    in_view = [int(f[3].sum()) for f in frames]
+    check(min(in_view) >= tk.max_cnt, f"only {min(in_view)} dots in view")
+
+    # pass 1: as a user runs it; syncs and time of every image
+    tr = FeatureTracker(cfg)
+    check(tr.device.type == "cuda" and tr.pts.is_cuda,
+          "the tracker is not on the card")
+    published, ms, syncs = [], [], []
+    for t, img, _, _ in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame, n_sync = count_syncs(torch, lambda: tr.process(t, img))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        published.append(frame)
+        syncs.append(n_sync)
+    pubs = [f for f in published if f is not None]
+    n_valid = [int(f.valid.sum()) for f in pubs]
+    for prev, cur in zip(pubs, pubs[1:]):
+        gap = round((cur.t - prev.t) * TRACK_RATE)
+        kept = cur.valid & prev.valid & (cur.track_cnt == prev.track_cnt + gap)
+        check(kept.sum() >= 30, f"{kept.sum()} survivors at t={cur.t:.3f}")
+        check(bool((cur.ids[kept] == prev.ids[kept]).all()),
+              f"a survivor changed its id at t={cur.t:.3f}")
+        fresh = cur.valid & (cur.track_cnt <= gap)
+        check(bool((cur.ids[fresh] > prev.ids[prev.valid].max()).all()),
+              f"a new feature reuses an id at t={cur.t:.3f}")
+    # a stream gap restarts every track
+    t_gap = frames[-1][0] + 2.0
+    after = tr.process(t_gap, frames[-1][1])
+    check(after is not None and bool(
+        (after.track_cnt[after.valid] == 1).all()) and bool(
+        (after.ids[after.valid] > pubs[-1].ids.max()).all()),
+        "the stream gap did not restart the tracks")
+
+    # pass 2: the same images, every image's table read back
+    tr2 = FeatureTracker(cfg)
+    tables = []
+    for t, img, _, _ in frames:
+        _, out = tr2.process_device(t, img)
+        f = tr2.publish_from_packed(t, out.packed.cpu().numpy())
+        tables.append((f.ids, f.uv, f.valid))
+    sightings, share = track_accuracy(frames, tables)
+    ages = tr2.track_cnt.cpu().numpy()
+
+    def ten():
+        for k, (_, img, _, _) in enumerate(frames[:10]):
+            tr2.process_device(t_gap + 1.0 + k / TRACK_RATE, img)
+
+    n_launch, dev_ms, _ = profile_device(torch, ten)
+    launches, busy = n_launch / 10, dev_ms / 10
+    n_pub = len(pubs)
+    med, worst = statistics.median(ms[1:]), max(ms[1:])
+    unpub = sorted({s for s, f in zip(syncs, published) if f is None})
+    pub = sorted({s for s, f in zip(syncs, published) if f is not None})
+    print(f"tracker: {len(frames)} images of {view['width']}x"
+          f"{view['height']} at {TRACK_RATE:.0f} Hz, {min(in_view)}-"
+          f"{max(in_view)} dots in view: published {n_pub}; valid features "
+          f"per published frame {min(n_valid[1:])}-{max(n_valid[1:])} "
+          f"(first {n_valid[0]}); {sightings} sightings at age >= 5, "
+          f"{share:.4f} within 1.5 px of their landmark; longest track "
+          f"{int(ages.max())} images; ids kept by survivors, restart after a "
+          f"gap: ok; host syncs per image: unpublished {unpub}, published "
+          f"{pub}; {med:.2f} ms per image (median), max {worst:.2f} ms, "
+          f"budget {1e3 / TRACK_RATE:.1f} ms; {launches:.0f} kernel launches "
+          f"and {busy:.3f} ms of device time per image (busy share "
+          f"{busy / med:.3f}) [{card}]", flush=True)
+    lo, hi = round(0.283 * len(frames)), round(0.383 * len(frames))
+    check(lo <= n_pub <= hi, f"{n_pub} of {len(frames)} images published")
+    check(min(n_valid[1:]) >= 60, f"only {min(n_valid[1:])} valid features")
+    check(sightings > 20 * len(frames) and share >= 0.80,
+          f"{sightings} sightings, {share} on their landmark")
+    check(unpub == [0] and pub == [1],
+          f"host syncs: unpublished {unpub}, published {pub}")
+    return world, view
+
+
+def make_imu_window(torch, world, device):
+    """IMU_INTERVALS + 1 keyframes IMU_INTERVAL_S apart with the ideal
+    200 Hz samples between them in 64 slots an interval: (tensors for
+    preintegrate_batch, keyframe times)."""
+    from mvil_fusion_torch.config import SystemConfig
+    imu = SystemConfig().imu
+    cap = imu.max_imu_per_frame
+    times = TRACK_T0 + IMU_INTERVAL_S * np.arange(IMU_INTERVALS + 1)
+    acc = np.zeros((IMU_INTERVALS, cap, 3), np.float32)
+    gyr = np.zeros((IMU_INTERVALS, cap, 3), np.float32)
+    dt = np.zeros((IMU_INTERVALS, cap), np.float32)
+    mask = np.zeros((IMU_INTERVALS, cap), bool)
+    for b in range(IMU_INTERVALS):
+        a, g, d, ts = world.traj.imu_sequence(times[b], times[b + 1],
+                                              imu.rate_hz)
+        n = len(ts)
+        check(n <= cap, f"{n} samples in {cap} slots")
+        acc[b, :n], gyr[b, :n], dt[b, :n], mask[b, :n] = a, g, d, True
+    zero = np.zeros((IMU_INTERVALS, 3), np.float32)
+    up = lambda a: torch.as_tensor(a).to(device)
+    return [up(a) for a in (acc, gyr, dt, zero, zero)], up(mask), times
+
+
+def phase_imu(torch, world, view, card):
+    """preintegrate_batch and triangulate_window at the window's size; see
+    the module docstring."""
+    from mvil_fusion_torch.config import SystemConfig
+    from mvil_fusion_torch.ops import preintegration as pre
+    from mvil_fusion_torch.ops import triangulate as tri
+    from mvil_fusion_torch.utils import lie
+    cfg = SystemConfig()
+    device = "cuda:0"
+    up = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(device)
+    streams, mask, times = make_imu_window(torch, world, device)
+    noise = pre.noise_covariance(cfg.imu.acc_n, cfg.imu.gyr_n, cfg.imu.acc_w,
+                                 cfg.imu.gyr_w, device=device)
+
+    def integrate():
+        return pre.preintegrate_batch(*streams, noise, mask)
+
+    def timed(fn):
+        """(ms a call, kernel launches, host syncs) of fn."""
+        _, n_sync = count_syncs(torch, fn)
+        return (time_ms(torch, fn, reps=10, warmup=2),
+                profile_device(torch, fn)[0], n_sync)
+
+    out = integrate()
+    states = [world.traj.state_at(t) for t in times]
+    p, q, v = (up(np.stack(col)) for col in zip(*states))
+    zero = torch.zeros((IMU_INTERVALS, 3), device=device)
+    res = pre.imu_residual(out, p[:-1], q[:-1], v[:-1], zero, zero, p[1:],
+                           q[1:], v[1:], zero, zero,
+                           up(world.traj.gravity)).cpu().numpy()
+    P = out.P.double().cpu()
+    asym = float((P - P.transpose(1, 2)).abs().max() / P.abs().max())
+    _, info = torch.linalg.cholesky_ex(0.5 * (P + P.transpose(1, 2)))
+    pre_ms, pre_launches, pre_syncs = timed(integrate)
+    n_steps = int(mask.sum()) - IMU_INTERVALS
+    print(f"imu: preintegrate_batch of {IMU_INTERVALS} intervals x "
+          f"{mask.shape[1]} slots ({n_steps} steps): max |residual| against "
+          f"the true states p {np.abs(res[:, 0:3]).max():.2e}, q "
+          f"{np.abs(res[:, 3:6]).max():.2e}, v "
+          f"{np.abs(res[:, 6:9]).max():.2e}; P asymmetry {asym:.1e}, "
+          f"positive definite {bool((info == 0).all())}; {pre_ms:.2f} ms a "
+          f"call, {pre_launches} kernel launches, {pre_syncs} host syncs "
+          f"[{card}]", flush=True)
+    check(bool(np.isfinite(res).all()) and np.abs(res).max() < 1e-3,
+          f"imu residual {np.abs(res).max()}")
+    check(asym < 1e-5 and bool((info == 0).all()),
+          "P is not symmetric positive definite")
+    check(abs(float(out.sum_dt[0]) - IMU_INTERVAL_S) < 1e-5, "sum_dt")
+
+    # the window's cameras and 256 landmarks seen from them
+    n_feat, W = cfg.tracker.max_features_pad, IMU_INTERVALS + 1
+    R_wb = lie.quat_to_mat(q.double().cpu())
+    p_wc = (R_wb @ torch.as_tensor(TIC) + p.double().cpu()).numpy()
+    q_wc = lie.mat_to_quat(R_wb @ torch.as_tensor(RIC))
+    proj = [world.project(t, RIC, TIC, **view) for t in times]
+    vis = np.stack([pr[3] for pr in proj], axis=1)               # (L,W)
+    pick = np.argsort(-vis.sum(1), kind="stable")[:n_feat]
+    obs = np.stack([pr[1][pick] for pr in proj], axis=1)         # (F,W,2)
+    seen = vis[pick]
+    start = np.argmax(seen, axis=1)
+    depth = np.stack([pr[2][pick] for pr in proj], axis=1)[
+        np.arange(n_feat), start]
+    rays = world.landmarks[pick][:, None, :] - p_wc[None]        # (F,W,3)
+    rays /= np.linalg.norm(rays, axis=-1, keepdims=True)
+    cosang = np.einsum("fwi,fvi->fwv", rays, rays)
+    cosang[~(seen[:, :, None] & seen[:, None, :])] = 1.0
+    parallax = np.degrees(np.arccos(np.clip(cosang.min((1, 2)), -1, 1)))
+    args = (up(p_wc), up(q_wc.numpy()), up(obs),
+            torch.as_tensor(seen).to(device),
+            torch.as_tensor(start).to(device))
+
+    def triangulate():
+        return tri.triangulate_window(*args)
+
+    inv, good = (a.cpu().numpy() for a in triangulate())
+    wide = (parallax >= 1.5) & (seen.sum(1) >= 2)
+    rel = np.abs(1.0 / inv[wide] - depth[wide]) / depth[wide]
+    tri_ms, tri_launches, tri_syncs = timed(triangulate)
+    print(f"imu: triangulate_window of {n_feat} features x {W} frames: "
+          f"{int(good.sum())} good, {int(wide.sum())} with >= 1.5 deg of "
+          f"parallax, their depth error median {np.median(rel):.2e}, max "
+          f"{rel.max():.2e}; {tri_ms:.3f} ms a call, {tri_launches} kernel "
+          f"launches, {tri_syncs} host syncs [{card}]", flush=True)
+    check(wide.sum() >= 100 and bool(good[wide].all()),
+          f"{wide.sum()} features with parallax, {good[wide].sum()} good")
+    check(rel.max() < 0.02, f"depth error {rel.max()}")
+
+
 def main() -> int:
     import torch
     check(torch.cuda.is_available(),
@@ -653,6 +981,10 @@ def main() -> int:
     # 5-7. the global-mapping stage on the card
     phase_chained(torch, subs, sweeps, card)
     phase_solver(torch, phase_loop(torch, card), card)
+
+    # 8-9. the sensor front ends of mono VIO on the card
+    world, view = phase_tracker(torch, card)
+    phase_imu(torch, world, view, card)
 
     print(json.dumps({"kernels": [{
         "name": "knn_topk", "route": "cuda",

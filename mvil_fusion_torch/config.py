@@ -10,7 +10,82 @@ every field here to the reference's value.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class CameraConfig:
+    """Camera intrinsics (reference: camera_model CameraFactory.cc; pinhole
+    defaults reproduce config/mynteye_leishen_indoor.yaml:8-22).
+
+    `model` selects pinhole (radtan: k1,k2,p1,p2), mei (adds xi),
+    equidistant (Kannala-Brandt: k2..k5), or scaramuzza (poly + affine
+    c,d,e): all four camodocal models the reference vendors."""
+
+    model: str = "pinhole"
+    width: int = 640
+    height: int = 480
+    fx: float = 356.37000498
+    fy: float = 354.92225534
+    cx: float = 326.87903275
+    cy: float = 250.93806883
+    k1: float = -0.29326213
+    k2: float = 0.07505211
+    p1: float = 0.0002761
+    p2: float = -0.00026777
+    fisheye: bool = False
+    # MEI (CataCamera) mirror parameter
+    xi: float = 1.0
+    # equidistant (Kannala-Brandt) higher-order terms (k2 shared above)
+    k3: float = 0.0
+    k4: float = 0.0
+    k5: float = 0.0
+    # Scaramuzza polynomial z = Σ poly[k]·ρ^k and affine [c d; e 1]
+    poly: Tuple[float, ...] = (-200.0, 0.0, 0.001)
+    aff_c: float = 1.0
+    aff_d: float = 0.0
+    aff_e: float = 0.0
+
+    @property
+    def intrinsics(self) -> Tuple[float, float, float, float]:
+        return (self.fx, self.fy, self.cx, self.cy)
+
+    @property
+    def distortion(self) -> Tuple[float, float, float, float]:
+        return (self.k1, self.k2, self.p1, self.p2)
+
+
+@dataclass(frozen=True)
+class TrackerConfig:
+    """KLT feature-tracker front end (reference: feature_tracker_/src/
+    parameters.h:60-92, yaml:67-73)."""
+
+    max_cnt: int = 150           # max tracked features
+    min_dist: int = 30           # min pixel distance between features
+    freq: int = 10               # publish rate Hz (0 = image rate)
+    f_threshold: float = 1.0     # fundamental RANSAC threshold (px)
+    equalize: bool = True        # CLAHE on input image
+    window_size: int = 21        # LK patch size
+    pyramid_levels: int = 3      # LK pyramid levels
+    max_iters: int = 10          # LK iterations per level
+    min_eig_threshold: float = 1e-4
+    ransac_iters: int = 256      # fundamental-matrix hypotheses (batched)
+    # static padded capacity for feature slots on device (>= max_cnt)
+    max_features_pad: int = 256
+
+
+@dataclass(frozen=True)
+class ImuConfig:
+    """IMU noise model (reference yaml:80-87)."""
+
+    acc_n: float = 0.02065
+    gyr_n: float = 0.00519
+    acc_w: float = 0.00667
+    gyr_w: float = 0.00088056
+    g_norm: float = 9.795
+    rate_hz: float = 200.0
+    # static padded capacity of IMU samples per image interval
+    max_imu_per_frame: int = 64
 
 
 @dataclass(frozen=True)
@@ -91,6 +166,9 @@ class GlobalMappingConfig:
 
 @dataclass(frozen=True)
 class SystemConfig:
+    camera: CameraConfig = field(default_factory=CameraConfig)
+    tracker: TrackerConfig = field(default_factory=TrackerConfig)
+    imu: ImuConfig = field(default_factory=ImuConfig)
     lidar: LidarConfig = field(default_factory=LidarConfig)
     local_mapping: LocalMappingConfig = field(
         default_factory=LocalMappingConfig)

@@ -5,6 +5,7 @@
     python3 profile_slice.py --knn [--splits 1,8,16,64] [--package-root DIR]
     python3 profile_slice.py --drift-runs N [--package-root DIR]
     python3 profile_slice.py --global [--trace-dir build/profile]
+    python3 profile_slice.py --frontend
 
 Drives the drift run of chip_smoke.py (40 sweeps of 16 × 900 points at the
 default SystemConfig) on cuda:0, each phase on a fresh mapper:
@@ -67,6 +68,23 @@ pass on a fresh GlobalMapper:
    (means, plane normals, owners and counts), and the whole loop run
    three times (decisions, last-lap error, largest pose difference from
    the first run).
+
+With --frontend it profiles the sensor front ends of mono VIO instead, on
+the tracker run of chip_smoke.py (640×480 images at 30 Hz, the default
+SystemConfig):
+
+1. wall: ms per image as a user runs it (host clock, device drained),
+   median over images 2–30, published and unpublished apart;
+2. image: torch.profiler over images 13–22: kernel launches and device ms
+   per image, the busy share of the wall;
+3. stages: the step's parts called alone on the state and image of image
+   13 (upload, CLAHE, pyramid, KLT level by level, the two lifts to the
+   normalized plane, RANSAC, corner detection): launches, device ms and
+   ms a call from the host, each; "rest" is the step less these (the
+   min-distance mask, the refill scatter, ids, velocity, the pack);
+4. imu: one preintegrate_batch (6 intervals × 64 slots) and one
+   triangulate_window (256 × 7): launches, device ms by kernel group, ms a
+   call.
 """
 
 from __future__ import annotations
@@ -422,6 +440,127 @@ def global_spread(torch, subs, truth, card, runs: int = 3) -> None:
               f"max |dz| {d[:, 2].max():.4f} m [{card}]", flush=True)
 
 
+def frontend_profile(torch, card) -> None:
+    """--frontend: the tracker's step by stage, then the IMU window."""
+    import numpy as np
+    from mvil_fusion_torch.config import SystemConfig
+    from mvil_fusion_torch.frontend.feature_tracker import (VIRTUAL_FOCAL,
+                                                            FeatureTracker)
+    from mvil_fusion_torch.ops import corners, image as im, klt, ransac
+    from mvil_fusion_torch.ops import preintegration as pre
+    from mvil_fusion_torch.ops import triangulate as tri
+    cfg = SystemConfig()
+    tk = cfg.tracker
+    world, view = smoke.make_camera_world()
+    frames = smoke.make_track_images(world, view, 30)
+
+    # 1. wall
+    tr = FeatureTracker(cfg)
+    rows = []
+    for t, img, _, _ in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = tr.process(t, img)
+        torch.cuda.synchronize()
+        rows.append((1e3 * (time.perf_counter() - t0), frame is not None))
+    med = lambda pub: statistics.median(ms for ms, p in rows[1:] if p == pub)
+    wall = statistics.median(ms for ms, _ in rows[1:])
+    print(f"wall: {wall:.2f} ms per image (median of images 2-30): "
+          f"{med(True):.2f} published, {med(False):.2f} unpublished; max "
+          f"{max(ms for ms, _ in rows[1:]):.2f} ms [{card}]", flush=True)
+
+    # 2. image
+    tr = FeatureTracker(cfg)
+    for t, img, _, _ in frames[:12]:
+        tr.process_device(t, img)
+    state = (tr.prev_pyr, tr.pts, tr.valid, tr.norm)
+    n_launch, dev_ms, kernels = smoke.profile_device(torch, lambda: [
+        tr.process_device(t, img) for t, img, _, _ in frames[12:22]])
+    groups = collections.Counter()
+    for name, (_, ms) in kernels.items():
+        groups[_group(name)] += ms / 10
+    print(f"image: {n_launch / 10:.0f} kernel launches and {dev_ms / 10:.3f} "
+          f"ms of device time per image; busy share {dev_ms / 10 / wall:.3f}, "
+          f"idle share {1 - dev_ms / 10 / wall:.3f}; device ms by kernel "
+          "group: " + ", ".join(f"{g} {ms:.3f}"
+                                for g, ms in groups.most_common())
+          + f" [{card}]", flush=True)
+
+    # 3. stages, alone, on image 13's inputs
+    prev_pyr, pts, valid, prev_norm = state
+    raw = frames[12][1]
+    img = tr._upload(raw)
+    eq = im.clahe(img)
+    pyr = im.build_pyramid(eq, tk.pyramid_levels)
+    stages = [("upload", lambda: tr._upload(raw)),
+              ("clahe", lambda: im.clahe(img)),
+              ("pyramid", lambda: im.build_pyramid(eq, tk.pyramid_levels))]
+    d = torch.zeros_like(pts)
+    for lvl in range(tk.pyramid_levels, -1, -1):
+        def level(lvl=lvl, d=d):
+            return klt._track_level(prev_pyr[lvl], pyr[lvl], pts / 2.0 ** lvl,
+                                    d, tk.window_size, tk.max_iters,
+                                    tk.min_eig_threshold)
+        stages.append((f"klt level {lvl}", level))
+        d = level()[0] * 2.0
+    res = klt.track(prev_pyr, pyr, pts, valid, win=tk.window_size,
+                    iters=tk.max_iters, min_eig_thr=tk.min_eig_threshold)
+    x1 = prev_norm * VIRTUAL_FOCAL
+    x2 = tr.camera.lift_projective(res.pts) * VIRTUAL_FOCAL
+    stages += [
+        ("lift x2", lambda: [tr.camera.lift_projective(res.pts)
+                             for _ in range(2)]),
+        ("ransac", lambda: ransac.fundamental_ransac(
+            x1, x2, res.ok, threshold=tk.f_threshold, n_hyp=tk.ransac_iters,
+            generator=tr.generator)),
+        ("corners", lambda: corners.detect(eq, res.pts, res.ok,
+                                           max_new=tk.max_cnt,
+                                           min_dist=tk.min_dist))]
+    total_l = total_d = 0.0
+    for name, fn in stages:
+        launches, ms, _ = smoke.profile_device(
+            torch, lambda: [fn() for _ in range(5)])
+        call_ms = smoke.time_ms(torch, fn, reps=10, warmup=2)
+        total_l += launches / 5
+        total_d += ms / 5
+        print(f"stage: {name:<12} {launches / 5:7.0f} launches, "
+              f"{ms / 5:7.3f} ms on the device, {call_ms:7.3f} ms a call "
+              f"[{card}]", flush=True)
+    print(f"stage: {'rest':<12} {n_launch / 10 - total_l:7.0f} launches, "
+          f"{dev_ms / 10 - total_d:7.3f} ms on the device (the step less "
+          f"the stages above) [{card}]", flush=True)
+
+    # 4. the IMU window
+    streams, mask, _ = smoke.make_imu_window(torch, world, "cuda:0")
+    noise = pre.noise_covariance(cfg.imu.acc_n, cfg.imu.gyr_n, cfg.imu.acc_w,
+                                 cfg.imu.gyr_w, device="cuda:0")
+    rng = np.random.default_rng(smoke.SEED)
+    n_feat, W = tk.max_features_pad, smoke.IMU_INTERVALS + 1
+    q = rng.normal(size=(W, 4))
+    cams = [torch.as_tensor(a.astype(np.float32)).cuda() for a in (
+        rng.normal(size=(W, 3)), q / np.linalg.norm(q, axis=1, keepdims=True),
+        rng.normal(scale=0.3, size=(n_feat, W, 2)))]
+    seen = torch.ones((n_feat, W), dtype=torch.bool, device="cuda:0")
+    start = torch.zeros((n_feat,), dtype=torch.int64, device="cuda:0")
+    for name, fn in (
+            ("preintegrate_batch", lambda: pre.preintegrate_batch(
+                *streams, noise, mask)),
+            ("triangulate_window", lambda: tri.triangulate_window(
+                *cams, seen, start))):
+        fn()
+        launches, ms, kernels = smoke.profile_device(torch, fn)
+        call_ms = smoke.time_ms(torch, fn, reps=10, warmup=2)
+        _, syncs = smoke.count_syncs(torch, fn)
+        groups = collections.Counter()
+        for kname, (_, kms) in kernels.items():
+            groups[_group(kname)] += kms
+        print(f"imu: {name}: {launches} launches, {ms:.3f} ms on the device, "
+              f"{call_ms:.3f} ms a call, {syncs} host syncs; device ms by "
+              "kernel group: " + ", ".join(
+                  f"{g} {v:.3f}" for g, v in groups.most_common())
+              + f" [{card}]", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace-dir", default="build/profile",
@@ -437,6 +576,9 @@ def main() -> int:
     ap.add_argument("--global", dest="global_stage", action="store_true",
                     help="profile the global-mapping stage on the loop run "
                          "and stop")
+    ap.add_argument("--frontend", action="store_true",
+                    help="profile the tracker's step by stage and the IMU "
+                         "window and stop")
     ap.add_argument("--package-root", default=None,
                     help="take mvil_fusion_torch from this checkout")
     args = ap.parse_args()
@@ -452,6 +594,9 @@ def main() -> int:
     print(f"package: {pathlib.Path(mvil_fusion_torch.__file__).parent}",
           flush=True)
     set_fp32_policy()
+    if args.frontend:
+        frontend_profile(torch, card)
+        return 0
     if args.global_stage:
         subs, truth = smoke.make_loop_submaps()
         global_wall(torch, subs, card)

@@ -1,8 +1,10 @@
 """The port's own configuration and synthetic data against the JAX
 package's: every field of ``mvil_fusion_torch.config`` holds the
 reference's default, and the port's trajectory and sweep generators give
-bit-identical output for the same arguments.  Also checks that
-``chip_smoke.py`` imports nothing of JAX or of the JAX package."""
+bit-identical output for the same arguments, as do the IMU stream, the
+landmarks' projection and the rendered image of the VIO slice.  Also
+checks that ``chip_smoke.py`` imports nothing of JAX or of the JAX
+package."""
 
 import ast
 import dataclasses
@@ -57,6 +59,73 @@ def test_sweep_matches_reference(trajs, t0, n_azimuth):
     for key in sj:
         np.testing.assert_array_equal(st[key], sj[key], err_msg=key)
     assert st["mask"].sum() > 0.9 * st["mask"].size
+
+
+# ---------------------------------------------------------------------------
+# the sensor front ends: camera, tracker and IMU sections; IMU stream,
+# projection and rendered image
+# ---------------------------------------------------------------------------
+
+RIC = np.asarray([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+TIC = np.asarray([0.05, -0.02, 0.01])
+
+
+@pytest.mark.parametrize("cls", ["CameraConfig", "TrackerConfig",
+                                 "ImuConfig"])
+def test_front_end_config_classes_match_reference(cls):
+    ours, ref = getattr(tconfig, cls)(), getattr(jconfig, cls)()
+    ref_fields = {f.name for f in dataclasses.fields(ref)}
+    names = [f.name for f in dataclasses.fields(ours)]
+    assert set(names) <= ref_fields
+    for name in names:
+        assert getattr(ours, name) == getattr(ref, name), name
+    # what the port leaves out is the JAX pipeline's own
+    assert ref_fields - set(names) <= {"border", "upload_workers"}
+    if cls == "CameraConfig":
+        assert ours.intrinsics == ref.intrinsics
+        assert ours.distortion == ref.distortion
+        assert isinstance(ours.poly, tuple)
+
+
+def test_imu_stream_matches_reference(trajs):
+    tj, tt = trajs
+    for name in ("v", "a"):
+        np.testing.assert_array_equal(getattr(tt, name), getattr(tj, name))
+    np.testing.assert_array_equal(tt.gravity, tj.gravity)
+    for t in (0.0, 1.23, 4.9):
+        for a, b in zip(tt.state_at(t), tj.state_at(t)):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(tt.imu_at(t), tj.imu_at(t)):
+            np.testing.assert_array_equal(a, b)
+    kw = dict(ba=[0.05, -0.02, 0.03], bg=[0.01, 0.0, -0.02], noise_acc=0.02,
+              noise_gyr=0.005)
+    sj = tj.imu_sequence(1.0, 1.35, 200.0, rng=np.random.default_rng(3), **kw)
+    st = tt.imu_sequence(1.0, 1.35, 200.0, rng=np.random.default_rng(3), **kw)
+    assert len(st) == len(sj) == 4 and len(st[0]) == 71
+    for a, b in zip(st, sj):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(tt.imu_sequence(7.9, 8.2, 100.0),
+                    tj.imu_sequence(7.9, 8.2, 100.0)):   # clipped at the end
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(
+    fx=356.37, fy=354.92, cx=326.88, cy=250.94, width=320, height=240)])
+def test_world_projection_and_image_match_reference(trajs, kw):
+    tj, tt = trajs
+    wj = jsyn.SyntheticWorld(traj=tj, n_landmarks=600, seed=4)
+    wt = tsyn.SyntheticWorld(traj=tt, n_landmarks=600, seed=4)
+    np.testing.assert_array_equal(wt.landmarks, wj.landmarks)
+    for t in (0.5, 3.3):
+        pj, pt = wj.project(t, RIC, TIC, **kw), wt.project(t, RIC, TIC, **kw)
+        assert pt[3].sum() > 5
+        for a, b in zip(pt, pj):
+            np.testing.assert_array_equal(a, b)
+        ij = wj.render_image(t, RIC, TIC, **kw)
+        it = wt.render_image(t, RIC, TIC, **kw)
+        assert it.dtype == np.float32 and it.max() > 100.0
+        assert it.shape == (kw.get("height", 480), kw.get("width", 640))
+        np.testing.assert_array_equal(it, ij)
 
 
 def test_chip_smoke_imports_only_the_port():

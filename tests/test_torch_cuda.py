@@ -15,7 +15,12 @@ on the CPU: the same decisions, horizontal position within 2 cm, height
 within 0.4 m, rotation within 4°.  Height, roll and pitch of that loop
 hang on plane normals that are rounding noise (see
 tests/test_torch_global_mapping.py): runs of the same code on an H100
-differed by 2–7 mm horizontally and 3–20 cm in height.
+differed by 2–7 mm horizontally and 3–20 cm in height.  The feature
+tracker on the card is held to the tracker on the CPU step by step, each
+step from the CPU's state and with the CPU's RANSAC samples: pixels within
+0.05 px, at most 2 of the 256 slots differing in validity (a threshold
+crossed by the card's fused multiply-adds); preintegration on the card to
+the CPU's within 1e-5, J and P within 1e-4 of their largest entry.
 """
 
 import warnings
@@ -26,6 +31,7 @@ import torch
 
 import chip_smoke
 from mvil_fusion_torch.config import SystemConfig
+from mvil_fusion_torch.frontend.feature_tracker import FeatureTracker
 from mvil_fusion_torch.frontend.lidar_compensator import LidarCompensator
 from mvil_fusion_torch.io.synthetic import SyntheticTrajectory
 from mvil_fusion_torch.io.synthetic_lidar import BoxWorld, simulate_sweep
@@ -33,7 +39,8 @@ from mvil_fusion_torch.mapping.global_mapping import GlobalMapper
 from mvil_fusion_torch.mapping.local_mapping import LocalMapper
 from mvil_fusion_torch.ops import deskew
 from mvil_fusion_torch.ops import knn_topk as K
-from mvil_fusion_torch.ops import scancontext, voxel
+from mvil_fusion_torch.ops import preintegration as pre
+from mvil_fusion_torch.ops import ransac, scancontext, voxel
 from mvil_fusion_torch.utils import nplie
 
 pytestmark = pytest.mark.cuda
@@ -355,3 +362,103 @@ def test_descriptor_and_voxel_owners_are_the_same_every_run(cuda):
 def test_global_mapper_defaults_to_the_card(cuda):
     gm = GlobalMapper(SystemConfig())
     assert gm.device.type == "cuda" and gm.graph.e_i.is_cuda
+
+
+# ---------------------------------------------------------------------------
+# the sensor front ends of mono VIO
+# ---------------------------------------------------------------------------
+
+def _tracker_state(tr):
+    """A tracker's state as numpy arrays and host values."""
+    host = lambda t: t.cpu().numpy()
+    return dict(
+        pts=host(tr.pts), valid=host(tr.valid), track_cnt=host(tr.track_cnt),
+        norm=host(tr.norm), ids=host(tr.ids), next_id=host(tr.next_id),
+        prev_pyr=None if tr.prev_pyr is None else [host(p)
+                                                   for p in tr.prev_pyr],
+        prev_t=tr.prev_t, first_image_time=tr.first_image_time,
+        pub_count=tr.pub_count)
+
+
+def test_tracker_on_card_matches_cpu_step_by_step(cuda):
+    """5 images of chip_smoke.py's tracker run at the default SystemConfig:
+    before each, the card's tracker takes over the CPU tracker's state;
+    both draw the CPU generator's RANSAC samples."""
+    cfg = SystemConfig()
+    world, view = chip_smoke.make_camera_world()
+    frames = chip_smoke.make_track_images(world, view, 5)
+    host = FeatureTracker(cfg, device="cpu")
+    card = FeatureTracker(cfg)
+    assert card.device.type == "cuda" and card.pts.is_cuda
+    drawn = []
+
+    def draw(ok):
+        drawn.append(ransac.sample_hypotheses(ok, cfg.tracker.ransac_iters,
+                                              host.generator))
+        return drawn[-1]
+
+    host.hypothesis_source = draw
+    card.hypothesis_source = lambda ok: drawn[-1]
+    for k, (t, img, _, _) in enumerate(frames):
+        card.load_reference_state(_tracker_state(host))
+        _, out_h = host.process_device(t, img)
+        _, out_c = card.process_device(t, img)
+        fh = host.publish_from_packed(t, out_h.packed.numpy())
+        fc = card.publish_from_packed(t, out_c.packed.cpu().numpy())
+        differ = np.nonzero(fh.valid != fc.valid)[0]
+        assert len(differ) <= 2, (k, differ, fh.uv[differ], fc.uv[differ])
+        both = fh.valid & fc.valid
+        assert both.sum() >= 60
+        assert np.abs(fh.uv[both] - fc.uv[both]).max() < 0.05, k
+        np.testing.assert_array_equal(fh.track_cnt[both], fc.track_cnt[both])
+        if not len(differ):
+            np.testing.assert_array_equal(fh.ids, fc.ids)
+    assert len(drawn) == len(frames) - 1
+
+
+def test_tracker_syncs_once_per_published_image(cuda):
+    """An unpublished image makes no host sync, a published one exactly
+    one (the packed readback), as torch.cuda's sync debug mode sees it."""
+    cfg = SystemConfig()
+    world, view = chip_smoke.make_camera_world()
+    frames = chip_smoke.make_track_images(world, view, 7)
+    tr = FeatureTracker(cfg)
+    seen = []
+    for t, img, _, _ in frames:
+        frame, syncs = chip_smoke.count_syncs(torch,
+                                              lambda: tr.process(t, img))
+        seen.append((frame is not None, syncs))
+    assert [s for _, s in seen] == [int(p) for p, _ in seen], seen
+    assert seen[0][0] and 2 <= sum(p for p, _ in seen) <= 4, seen
+    # a float32 image and an image already on the card go the same way
+    t = frames[-1][0]
+    for k, img in enumerate((frames[0][1].astype(np.float32),
+                             torch.as_tensor(frames[0][1]).cuda())):
+        _, syncs = chip_smoke.count_syncs(
+            torch, lambda: tr.process_device(t + 0.01 * (k + 1), img))
+        assert syncs == 0
+
+
+def test_preintegration_on_card_matches_cpu(cuda):
+    world, _ = chip_smoke.make_camera_world()
+    imu = SystemConfig().imu
+    out = {}
+    for dev in ("cpu", cuda):
+        streams, mask, _ = chip_smoke.make_imu_window(torch, world, dev)
+        noise = pre.noise_covariance(imu.acc_n, imu.gyr_n, imu.acc_w,
+                                     imu.gyr_w, device=dev)
+        fn = lambda: pre.preintegrate_batch(*streams, noise, mask)
+        out[str(dev)], syncs = chip_smoke.count_syncs(torch, fn)
+        assert syncs == 0
+    on_card, on_host = out[str(cuda)], out["cpu"]
+    assert on_card.J.is_cuda and on_card.dq.shape == (6, 4)
+    for name in ("dp", "dq", "dv", "sum_dt"):
+        torch.testing.assert_close(getattr(on_card, name).cpu(),
+                                   getattr(on_host, name), rtol=0, atol=1e-5)
+    for name in ("J", "P"):
+        ref = getattr(on_host, name)
+        torch.testing.assert_close(getattr(on_card, name).cpu(), ref, rtol=0,
+                                   atol=1e-4 * float(ref.abs().max()))
+    L, syncs = chip_smoke.count_syncs(torch,
+                                      lambda: pre.sqrt_information(on_card))
+    assert syncs == 0 and bool(torch.isfinite(L).all())
