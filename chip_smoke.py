@@ -73,8 +73,34 @@ Phases, one line each (any failure raises and the script exits non-zero):
    the true states below 1e-3 in every component, P symmetric and positive
    definite; triangulate_window at 256 features × 7 frames on the true
    camera poses and the landmarks' true normalized projections: depth
-   within 2 % for every feature seen with ≥ 1.5° of parallax.  Prints ms
-   per call, kernel launches and host syncs of each.
+   within 2 % for every feature seen with ≥ 1.5° of parallax, and no host
+   sync in triangulation.  Prints ms per call, kernel launches and host
+   syncs of each;
+10. window: the window solve of mono VIO at the default SystemConfig's
+   width (W = 7, 256 feature slots, D = 112, 64 IMU slots an interval, 5
+   ICP and 7 LPS rows) on a window that this script builds as
+   tests/helpers.py::build_window_problem does, on tests/test_ba.py's
+   strongly excited trajectory with 3000 landmarks (231 of the 256 slots
+   hold a landmark seen in ≥ 3 of the 7 frames; 400 fill 39) and 0.5 px
+   of observation noise.  Gates:
+   (a) ba.solve, 20 iterations from perturb_state's perturbation: cost1
+   below 1e-2 of cost0, position within 0.02 m, angle 0.01 rad, velocity
+   0.05 m/s of the truth; (b) vio.frame_step with marginalize-old, then
+   the window one frame later started from the solved frames with the new
+   prior (anchor off): both within 0.05 m; (c) frame_step with
+   marginalize-second-new: the prior's columns of slot W-2's pose below
+   1e-6; (d) the LiDAR rows from the truth: within 0.02 m and 0.01 rad;
+   with zero velocity slot W-2's speed below 1e-2 m/s and, in ba.solve,
+   its position pinned within 1e-3 m; (e) the card against the port on
+   the CPU on (b)'s inputs: position 1e-3 m, angle 1e-3 rad, velocity
+   5e-3 m/s, inverse depth 1e-3 relative, cost1 1e-3 relative,
+   the new prior's JᵀJ 1e-3 and its cost change over 1 cm / 0.01 rad
+   steps 1e-3; (f) 3 host waits per step and readback (the two eigh of
+   the marginalization, the readback).  Prints ms per frame_step (median
+   of 20 after 3 warm-ups; host clock, device drained) at iters 8 and 4
+   with either marginalization, kernel launches, device ms and busy share
+   per step; the same at F = 1024 (13000 landmarks; 10 after 2), timed
+   but not gated.
 
 The second-to-last line is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}.  Neither JAX nor the JAX package is
@@ -917,6 +943,408 @@ def phase_imu(torch, world, view, card):
     check(wide.sum() >= 100 and bool(good[wide].all()),
           f"{wide.sum()} features with parallax, {good[wide].sum()} good")
     check(rel.max() < 0.02, f"depth error {rel.max()}")
+    check(tri_syncs == 0, f"triangulate_window waited {tri_syncs} times")
+
+
+# ---------------------------------------------------------------------------
+# the window solve of mono VIO: phase 10
+# ---------------------------------------------------------------------------
+
+VIO_TRAJ = dict(duration=8.0, w_amp=(0.9, 0.8, 1.0), w_freq=(0.5, 0.4, 0.6))
+VIO_RADIUS = 8.0
+VIO_T0 = 1.0
+VIO_DT = 0.1               # keyframes 0.1 s apart, 21 samples at 200 Hz
+VIO_LANDMARKS = {256: 3000, 1024: 13000}   # ≥ 200 of 256 slots filled
+VIO_NOISE_PX = 0.5         # observation noise, as tests/test_torch_frame_step
+STEP_REPS = 20
+STEP_WARMUP = 3
+
+
+def vio_world(n_landmarks):
+    """tests/test_ba.py's strongly excited trajectory with n landmarks."""
+    from mvil_fusion_torch.io.synthetic import (SyntheticTrajectory,
+                                                SyntheticWorld)
+    return SyntheticWorld(traj=SyntheticTrajectory(**VIO_TRAJ),
+                          landmark_radius=VIO_RADIUS,
+                          n_landmarks=n_landmarks, seed=SEED)
+
+
+def vio_window(world, t0, n_feat, noise_px, seed, W=7):
+    """The counterpart of tests/helpers.py::build_window_problem on the
+    port's synthetic world, in numpy: (true state, features, raw IMU
+    buffers (acc, gyr, dt, mask) in imu.max_imu_per_frame slots, times).
+    Identity extrinsics; up to n_feat landmarks seen in ≥ 3 frames, the
+    most seen first, with their true inverse depth in the start frame;
+    observations with noise_px of Gaussian noise drawn from seed."""
+    from mvil_fusion_torch.config import SystemConfig
+    cfg = SystemConfig()
+    imu = cfg.imu
+    times = t0 + VIO_DT * np.arange(W)
+    p, q, v = (np.stack(c) for c in zip(*(world.traj.state_at(t)
+                                          for t in times)))
+    proj = [world.project(t, np.eye(3), np.zeros(3)) for t in times]
+    obs_all = np.stack([pr[1] for pr in proj])             # (W,L,2)
+    vis = np.stack([pr[3] for pr in proj])                 # (W,L)
+    z = np.stack([pr[2] for pr in proj])
+    counts = vis.sum(0)
+    order = np.argsort(-counts, kind="stable")
+    chosen = order[counts[order] >= 3][:n_feat]
+    n = len(chosen)
+    start = np.zeros(n_feat, np.int64)
+    obs = np.zeros((n_feat, W, 2), np.float32)
+    mask = np.zeros((n_feat, W), bool)
+    inv_depth = np.ones(n_feat, np.float32)
+    valid = np.zeros(n_feat, bool)
+    mask[:n] = vis[:, chosen].T
+    start[:n] = np.argmax(mask[:n], axis=1)
+    obs[:n] = obs_all[:, chosen].transpose(1, 0, 2) + np.random.default_rng(
+        seed).normal(scale=noise_px / cfg.estimator.focal_length,
+                     size=(n, W, 2))
+    inv_depth[:n] = 1.0 / z[start[:n], chosen]
+    valid[:n] = True
+    feats = dict(start=start, obs=obs,
+                 vel=np.zeros((n_feat, W, 2), np.float32),
+                 td_ref=np.zeros((n_feat, W), np.float32), mask=mask,
+                 depth_fixed=np.zeros(n_feat, bool), valid=valid)
+    cap = imu.max_imu_per_frame
+    acc = np.zeros((W - 1, cap, 3), np.float32)
+    gyr = np.zeros((W - 1, cap, 3), np.float32)
+    dt = np.zeros((W - 1, cap), np.float32)
+    imask = np.zeros((W - 1, cap), bool)
+    for k in range(W - 1):
+        a, g, d, ts = world.traj.imu_sequence(times[k], times[k + 1],
+                                              imu.rate_hz)
+        check(len(ts) <= cap, f"{len(ts)} IMU samples in {cap} slots")
+        m = len(ts)
+        acc[k, :m], gyr[k, :m], dt[k, :m], imask[k, :m] = a, g, d, True
+    state = dict(p=p, q=q, v=v, ba=np.zeros((W, 3)), bg=np.zeros((W, 3)),
+                 tic=np.zeros(3), qic=np.array([1.0, 0, 0, 0]),
+                 td=np.zeros(()), inv_depth=inv_depth)
+    return state, feats, (acc, gyr, dt, imask), times
+
+
+def perturb(torch, s, seed, dp=0.05, dth=0.02, dv=0.05, dbias=0.005,
+            dlam=0.05, keep_first=True):
+    """tests/helpers.py::perturb_state on a port state."""
+    from mvil_fusion_torch.estimator import state as st
+    rng = np.random.default_rng(seed)
+    W, F = s.window, s.num_features
+    dx = np.zeros(st.pose_dim(W), np.float32)
+    for k in range(1 if keep_first else 0, W):
+        dx[15 * k:15 * k + 3] = rng.normal(scale=dp, size=3)
+        dx[15 * k + 3:15 * k + 6] = rng.normal(scale=dth, size=3)
+        dx[15 * k + 6:15 * k + 9] = rng.normal(scale=dv, size=3)
+        dx[15 * k + 9:15 * k + 15] = rng.normal(scale=dbias, size=6)
+    dl = rng.normal(scale=dlam, size=F).astype(np.float32)
+    dev = s.p.device
+    return st.apply_delta(s, torch.as_tensor(dx).to(dev),
+                          torch.as_tensor(dl).to(dev))
+
+
+def lidar_tables(torch, p, q, device):
+    """MAX_ICP ICP constraints measured from the true poses p, q and
+    MAX_LPS LPS constraints from the true orientations, all active."""
+    from mvil_fusion_torch.estimator import lidar_factors as lfac
+    from mvil_fusion_torch.utils import lie
+    P, Q = torch.as_tensor(p), torch.as_tensor(q)
+    ids = np.array([[0, 1, 2, 3], [1, 2, 4, 5], [2, 3, 5, 6], [0, 1, 5, 6],
+                    [3, 4, 4, 5]])
+    ai = torch.tensor([0.3, 0.5, 0.7, 0.2, 0.9], dtype=P.dtype)
+    aj = torch.tensor([0.6, 0.1, 0.4, 0.8, 0.5], dtype=P.dtype)
+    a, b, c, d = (torch.as_tensor(ids[:, k]) for k in range(4))
+    Qi = lie.quat_slerp(Q[a], Q[b], ai)
+    Pi = P[a] + (P[b] - P[a]) * ai[:, None]
+    Pj = P[c] + (P[d] - P[c]) * aj[:, None]
+    icp = lfac.icp_from_numpy(dict(
+        ids=ids, alpha_i=ai.numpy(), alpha_j=aj.numpy(),
+        trans_p=lie.quat_rotate_inv(Qi, Pj - Pi).numpy(),
+        weight=np.full(lfac.MAX_ICP, 20.0), active=np.ones(lfac.MAX_ICP,
+                                                            bool)),
+        device=device)
+    lids = np.array([[k, k + 1] for k in range(6)] + [[5, 6]])
+    la = torch.linspace(0.1, 0.9, lfac.MAX_LPS, dtype=P.dtype)
+    qm = lie.quat_slerp(Q[torch.as_tensor(lids[:, 0])],
+                        Q[torch.as_tensor(lids[:, 1])], la)
+    lps = lfac.lps_from_numpy(dict(ids=lids, alpha=la.numpy(),
+                                   q_meas=qm.numpy(),
+                                   active=np.ones(lfac.MAX_LPS, bool)),
+                              device=device)
+    return icp, lps
+
+
+class VioWindow:
+    """One window of phase 10 on `device`: the true state, a state
+    perturbed as tests/helpers.py::perturb_state does and observations
+    with noise_px of noise (both drawn from seed), and the frame step's
+    other arguments."""
+
+    def __init__(self, torch, world, t0, n_feat, device, seed,
+                 noise_px=VIO_NOISE_PX):
+        from mvil_fusion_torch.config import SystemConfig
+        from mvil_fusion_torch.estimator import ba, factors as fac
+        from mvil_fusion_torch.estimator import lidar_factors as lfac
+        from mvil_fusion_torch.estimator import state as st
+        from mvil_fusion_torch.ops import preintegration as pre
+        cfg = SystemConfig()
+        self.torch, self.device = torch, device
+        state, feats, imu, self.times = vio_window(world, t0, n_feat,
+                                                   noise_px, seed)
+        self.np_state = state
+        self.n_filled = int(feats["valid"].sum())
+        W = len(self.times)
+        up = lambda a, t=torch.float32: torch.as_tensor(  # noqa: E731
+            np.asarray(a)).to(device=device, dtype=t)
+        self.truth = st.window_state_from_numpy(state, device=device)
+        self.feats = st.features_from_numpy(feats, device=device)
+        self.imu = (up(imu[0]), up(imu[1]), up(imu[2]),
+                    up(imu[3], torch.bool))
+        self.gravity = up([0.0, 0.0, cfg.imu.g_norm])
+        self.noise = pre.noise_covariance(cfg.imu.acc_n, cfg.imu.gyr_n,
+                                          cfg.imu.acc_w, cfg.imu.gyr_w,
+                                          device=device)
+        self.focal = cfg.estimator.focal_length
+        self.fix_mask = ba.make_fix_mask(W, device=device)
+        self.empty_prior = fac.empty_prior(W, n_feat, device=device)
+        self.icp, self.lps = lidar_tables(torch, state["p"], state["q"],
+                                          device)
+        self.no_icp = lfac.empty_icp(device=device)
+        self.no_lps = lfac.empty_lps(device=device)
+        need = np.zeros(n_feat, bool)
+        need[:self.n_filled:3] = True
+        self.need_depth = up(need, torch.bool)
+        self.start = perturb(torch, self.truth, seed)
+
+    def problem(self):
+        """ba.BAProblem of the window with no prior and no extras."""
+        from mvil_fusion_torch.estimator import ba
+        from mvil_fusion_torch.ops import preintegration as pre
+        W = self.truth.window
+        preints = pre.preintegrate_batch(
+            *self.imu[:3], self.truth.ba[:-1], self.truth.bg[:-1],
+            self.noise, self.imu[3])
+        eJ, er = ba.empty_extra(W, device=self.device)
+        return ba.BAProblem(
+            feats=self.feats, preints=preints,
+            interval_mask=self.imu[3].any(dim=1), prior=self.empty_prior,
+            gravity=self.gravity, anchor_ref=self.truth, extra_J=eJ,
+            extra_r=er, extra_x0=self.truth, fix_mask=self.fix_mask)
+
+    def step_args(self, state=None, prior=None, lidar=False,
+                  zero_vel=False):
+        """The arguments of vio.frame_step before focal, iters and
+        marg_old."""
+        return (self.start if state is None else state, self.feats,
+                self.need_depth, *self.imu,
+                self.empty_prior if prior is None else prior, self.gravity,
+                self.noise, self.icp if lidar else self.no_icp,
+                self.lps if lidar else self.no_lps, zero_vel, self.fix_mask)
+
+    def step(self, args, iters, marg_old):
+        from mvil_fusion_torch.estimator import vio
+        return vio.frame_step(*args, self.focal, iters, marg_old)
+
+
+def to_cpu(torch, args):
+    """frame_step's arguments copied to the CPU."""
+    def cpu(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu()
+        if isinstance(x, tuple):
+            return type(x)(*(cpu(y) for y in x))
+        return x
+    return tuple(cpu(a) for a in args)
+
+
+def errors(torch, s, truth):
+    """(max position error m, max angle error rad, max velocity error)."""
+    from mvil_fusion_torch.utils import lie
+    ang = lie.quat_boxminus(s.q, truth.q).norm(dim=-1).max()
+    return (float((s.p - truth.p).abs().max()), float(ang),
+            float((s.v - truth.v).abs().max()))
+
+
+def information(torch, prior):
+    J = prior.J.double().cpu()
+    return J.T @ J, J.T @ prior.r0.double().cpu()
+
+
+def rel(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def prior_agreement(torch, prior, ref, n=8, scale=1e-2):
+    """How far two priors of the same window disagree, as the change of
+    their cost over n displacements dx of `scale` (m, rad) from ref's
+    linearization point: max |Δc − Δc_ref| / max |Δc_ref|, in float64.
+    Each prior is linearized at its own solved state, δ apart.  Jᵀr0 alone
+    is no measure at a solved state: it is a difference of terms 10⁴ times
+    larger, a one-ulp change of the state moves it by 1e-2 of itself, and
+    it enters the cost of a realistic step below the quadratic term."""
+    from mvil_fusion_torch.estimator import state as st
+    cpu = lambda x0: type(x0)(*(x.cpu() for x in x0))  # noqa: E731
+    delta = st.state_boxminus(cpu(prior.x0), cpu(ref.x0)).double()
+    J, r0 = prior.J.double().cpu(), prior.r0.double().cpu()
+    Jr, r0r = ref.J.double().cpu(), ref.r0.double().cpu()
+    gen = torch.Generator().manual_seed(SEED)
+    dx = scale * torch.randn((n, J.shape[1]), generator=gen,
+                             dtype=torch.float64)
+    base = r0 - J @ delta
+
+    def change(J_, r_, d):
+        return 0.5 * ((r_ + d @ J_.T) ** 2).sum(-1) - 0.5 * (r_ ** 2).sum()
+    got, want = change(J, base, dx), change(Jr, r0r, dx)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def time_steps(torch, win, args, iters, marg_old, reps, warmup):
+    """ms of one frame step and its readback, host clock, device drained:
+    the median over `reps` after `warmup`."""
+    from mvil_fusion_torch.estimator import vio
+    ms = []
+    for k in range(warmup + reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        vio.read_host_pack(win.step(args, iters, marg_old)[4])
+        torch.cuda.synchronize()
+        if k >= warmup:
+            ms.append(1e3 * (time.perf_counter() - t))
+    return statistics.median(ms)
+
+
+def phase_window(torch, card):
+    """The window solve of mono VIO at full width; see the module
+    docstring."""
+    from mvil_fusion_torch.estimator import ba, state as st, vio
+    from mvil_fusion_torch.utils import lie
+    dev = "cuda:0"
+    F, W = 256, 7
+    world = vio_world(VIO_LANDMARKS[F])
+    win = VioWindow(torch, world, VIO_T0, F, dev, seed=3)
+    check(win.n_filled >= 200, f"only {win.n_filled} of {F} slots filled")
+    check(win.truth.p.is_cuda and st.make_window_state(W, F).p.is_cuda,
+          "the window is not on the card")
+
+    # (a) ba.solve from perturb_state's perturbation, 20 iterations
+    prob = win.problem()
+    c0 = float(ba.evaluate_cost(win.start, prob, win.focal))
+    res = ba.solve(win.start, prob, win.focal, iters=20)
+    e_p, e_th, e_v = errors(torch, res.state, win.truth)
+    c1 = float(res.cost1)
+    print(f"window: {F} slots, {win.n_filled} filled from "
+          f"{VIO_LANDMARKS[F]} landmarks, W {W}, D {st.pose_dim(W)}; "
+          f"ba.solve x20 from a perturbed state: cost {c0:.1f} -> {c1:.4g}, "
+          f"{int(res.n_accepted)} steps accepted; error p {e_p:.4f} m, "
+          f"angle {e_th:.4f} rad, v {e_v:.4f} m/s", flush=True)
+    check(c1 < 1e-2 * c0, f"cost {c0} -> {c1}")
+    check(e_p < 0.02 and e_th < 0.01 and e_v < 0.05,
+          f"solve errors {e_p} {e_th} {e_v}")
+
+    # (b) frame_step(marg_old=True), then the window one frame later with
+    # the new prior (anchor off)
+    args_b = win.step_args()
+    s_new, prior, metrics, cost1, pack = win.step(args_b, 8, True)
+    host = vio.read_host_pack(pack)
+    e1 = errors(torch, s_new, win.truth)
+    # the slid window as the host would start it: frames 0..W-2 are the
+    # solved frames 1..W-1 (the prior's x0), the new frame and the depths
+    # of the new window's features perturbed from the truth
+    win2 = VioWindow(torch, world, VIO_T0 + VIO_DT, F, dev, seed=8)
+    new = perturb(torch, win2.truth, 8, dp=0.02, dth=0.01, dv=0.02,
+                  keep_first=False)
+    start2 = new._replace(tic=prior.x0.tic, qic=prior.x0.qic,
+                          td=prior.x0.td, **{
+                              f: torch.cat([getattr(prior.x0, f)[:-1],
+                                            getattr(new, f)[-1:]])
+                              for f in ("p", "q", "v", "ba", "bg")})
+    s2 = win2.step(win2.step_args(state=start2, prior=prior), 8, True)[0]
+    e2 = errors(torch, s2, win2.truth)
+    print(f"window: frame_step(marg_old) x8: cost1 {float(cost1):.4g}, "
+          f"metrics {np.round(host[:5], 4).tolist()}, error p {e1[0]:.4f} "
+          f"m; the next window with its prior (anchor off): error p "
+          f"{e2[0]:.4f} m, angle {e2[1]:.4f} rad", flush=True)
+    check(bool(np.isfinite(host).all()) and host[4] == 1.0,
+          "host_pack not finite")
+    check(e1[0] < 0.05 and e2[0] < 0.05, f"position errors {e1} {e2}")
+
+    # (c) frame_step(marg_old=False) drops slot W-2 from the prior
+    prior2 = win2.step(win2.step_args(state=start2, prior=prior), 8,
+                       False)[1]
+    k = W - 2
+    left = float(prior2.J[:, 15 * k:15 * k + 6].abs().max())
+    print(f"window: frame_step(marg_second_new): largest prior entry on "
+          f"slot {k}'s pose {left:.2e} (of {float(prior2.J.abs().max()):.1f}"
+          f")", flush=True)
+    check(left < 1e-6 and float(prior2.J.abs().max()) > 1e-3,
+          f"prior on slot {k}: {left}")
+
+    # (d) the LiDAR rows: ICP and LPS from the truth, then zero velocity
+    s_l = win.step(win.step_args(lidar=True), 8, True)[0]
+    e_l = errors(torch, s_l, win.truth)
+    s_z = win.step(win.step_args(lidar=True, zero_vel=True), 8, True)[0]
+    v_z = float(s_z.v[k].norm())
+    eJ, er = vio._extras_body(win.start, win.icp, win.lps, True)
+    prob_z = prob._replace(extra_J=eJ, extra_r=er, extra_x0=win.start)
+    s_pin = ba.solve(win.start, prob_z, win.focal, iters=8).state
+    pin = float((s_pin.p[k] - win.start.p[k]).abs().max())
+    print(f"window: with {len(win.icp.ids)} ICP and {len(win.lps.ids)} LPS "
+          f"rows from the truth: error p {e_l[0]:.4f} m, angle "
+          f"{e_l[1]:.4f} rad, v {e_l[2]:.4f} m/s; with zero velocity: "
+          f"|v| of slot {k} {v_z:.2e} m/s, its position moved {pin:.2e} m "
+          f"in the solve", flush=True)
+    check(e_l[0] < 0.02 and e_l[1] < 0.01, f"lidar-row errors {e_l}")
+    check(v_z < 1e-2 and pin < 1e-3, f"zero velocity: |v| {v_z}, {pin}")
+
+    # (e) the card against the port on the CPU, same inputs as (b)
+    cpu = win.step(to_cpu(torch, args_b), 8, True)
+    hc = cpu[4].numpy()
+    dq = float(lie.quat_boxminus(torch.as_tensor(host[9:13]),
+                                 torch.as_tensor(hc[9:13])).norm())
+    par = dict(p=float(np.abs(host[6:9] - hc[6:9]).max()), q=dq,
+               v=float(np.abs(host[13:16] - hc[13:16]).max()),
+               inv=float((np.abs(host[27:] - hc[27:])
+                          / np.abs(hc[27:])).max()),
+               cost=abs(host[5] - hc[5]) / abs(hc[5]),
+               H=rel(*(information(torch, pr)[0] for pr in (prior, cpu[1]))),
+               prior=prior_agreement(torch, prior, cpu[1]))
+    print("window: card against CPU, same inputs: " + ", ".join(
+        f"{k_} {v_:.2e}" for k_, v_ in par.items()), flush=True)
+    check(par["p"] < 1e-3 and par["q"] < 1e-3 and par["v"] < 5e-3
+          and par["inv"] < 1e-3 and par["cost"] < 1e-3 and par["H"] < 1e-3
+          and par["prior"] < 1e-3, f"card against CPU: {par}")
+
+    # (f) waits per step: the two eigh of the marginalization and the
+    # readback
+    waits = {}
+    for marg_old in (True, False):
+        _, waits[marg_old] = count_syncs(torch, lambda: vio.read_host_pack(
+            win.step(args_b, 8, marg_old)[4]))
+    print(f"window: host syncs per frame_step and readback: marg_old "
+          f"{waits[True]}, marg_second_new {waits[False]} (expected 3)",
+          flush=True)
+    check(waits == {True: 3, False: 3}, f"waits per step {waits}")
+
+    # times, launches and device ms
+    for n_feat in (F, 1024):
+        wt = win if n_feat == F else VioWindow(
+            torch, vio_world(VIO_LANDMARKS[n_feat]), VIO_T0, n_feat, dev,
+            seed=3)
+        args = wt.step_args(lidar=True)
+        ms = {}
+        reps, warmup = (STEP_REPS, STEP_WARMUP) if n_feat == F else (10, 2)
+        for iters in (8, 4):
+            for marg_old in (True, False):
+                ms[iters, marg_old] = time_steps(
+                    torch, wt, args, iters, marg_old, reps, warmup)
+        launches, dev_ms, _ = profile_device(
+            torch, lambda: vio.read_host_pack(wt.step(args, 8, True)[4]))
+        print(f"window: frame_step at F {n_feat} ({wt.n_filled} filled), "
+              f"ms (median of {reps} after {warmup}, host clock, "
+              f"device drained): iters 8 marg_old {ms[8, True]:.1f}, "
+              f"marg_second_new {ms[8, False]:.1f}; iters 4 marg_old "
+              f"{ms[4, True]:.1f}, marg_second_new {ms[4, False]:.1f}; "
+              f"budget 50 ms; iters 8 marg_old: {launches} kernel launches, "
+              f"{dev_ms:.3f} ms of device time, busy share "
+              f"{dev_ms / ms[8, True]:.3f} [{card}]", flush=True)
 
 
 def main() -> int:
@@ -985,6 +1413,9 @@ def main() -> int:
     # 8-9. the sensor front ends of mono VIO on the card
     world, view = phase_tracker(torch, card)
     phase_imu(torch, world, view, card)
+
+    # 10. the window solve of mono VIO on the card
+    phase_window(torch, card)
 
     print(json.dumps({"kernels": [{
         "name": "knn_topk", "route": "cuda",

@@ -89,6 +89,46 @@ class ImuConfig:
 
 
 @dataclass(frozen=True)
+class EstimatorConfig:
+    """Sliding-window VIO core (reference: vils_estimator/src/parameters.h:12-15,
+    yaml:24-45,75-77,89-118).  The JAX package's `angle_vi`,
+    `max_obs_per_feature`, `keyframe_parallax_px`, `dtype` and
+    `solver_dtype` are left out: neither package reads them, and the port
+    solves in fp32 throughout."""
+
+    window_size: int = 6          # +1 = frames in window (reference WINDOW_SIZE)
+    focal_length: float = 460.0   # virtual focal for info weighting
+    min_parallax: float = 10.0    # keyframe threshold px (/focal at use site)
+    max_solver_iters: int = 8     # LM iterations per solve
+    # per-frame solver wall-clock budget (reference: ceres
+    # max_solver_time_in_seconds = 0.05, estimator.cpp:1400-1414); a solve
+    # that overruns it runs the next frame at min_solver_iters.  <=0
+    # disables adaptation.
+    solver_time_budget_s: float = 0.05
+    min_solver_iters: int = 4
+    estimate_extrinsic: int = 1   # 0 fixed / 1 refine / 2 calibrate
+    estimate_td: bool = True
+    td_init: float = 0.00003
+    # camera-IMU extrinsic initial guess (row-major R, t) — imu^T_cam
+    ric: Tuple[float, ...] = (
+        0.99999072, -0.00209387, -0.00376471,
+        -0.00208308, -0.99999371, 0.0028693,
+        -0.0037707, -0.00286143, -0.9999888,
+    )
+    tic: Tuple[float, ...] = (-0.04571386, 0.01268073, -0.01535602)
+    # initialization bounds (reference yaml:90-101 PBC_* box)
+    pbc_upper: Tuple[float, ...] = (-0.04, 0.01, 0.01)
+    pbc_lower: Tuple[float, ...] = (-0.06, -0.01, -0.01)
+    # feature capacity inside the window (static shape)
+    max_features: int = 256       # padded landmark slots (ref NUM_OF_F=1000)
+    # failure detection thresholds (reference estimator.cpp:1076-1122)
+    fail_ba_norm: float = 2.5
+    fail_bg_norm: float = 1.0
+    fail_trans_jump: float = 10.0
+    fail_z_jump: float = 1.0
+
+
+@dataclass(frozen=True)
 class LidarConfig:
     """LiDAR front end and VGICP registration (reference yaml:120-140,
     lidar_compensator)."""
@@ -169,6 +209,7 @@ class SystemConfig:
     camera: CameraConfig = field(default_factory=CameraConfig)
     tracker: TrackerConfig = field(default_factory=TrackerConfig)
     imu: ImuConfig = field(default_factory=ImuConfig)
+    estimator: EstimatorConfig = field(default_factory=EstimatorConfig)
     lidar: LidarConfig = field(default_factory=LidarConfig)
     local_mapping: LocalMappingConfig = field(
         default_factory=LocalMappingConfig)

@@ -27,11 +27,13 @@ hold.  Nothing in `preintegrate_batch` waits for the device.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Mapping, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from mvil_fusion_torch.utils import lie
+from mvil_fusion_torch.utils.device import resolve_device
 
 STATE_DIM = 15
 NOISE_DIM = 18
@@ -50,6 +52,20 @@ class Preintegrated(NamedTuple):
     ba: torch.Tensor       # (3,) linearization accel bias
     bg: torch.Tensor       # (3,) linearization gyro bias
 
+
+def preintegrated_from_numpy(arrays, dtype=torch.float32,
+                             device: torch.device | str | None = None
+                             ) -> Preintegrated:
+    """A (batch of) Preintegrated from its eight fields as numpy (a
+    Mapping, or a NamedTuple such as the JAX package's), copied onto
+    `device` (None: the current CUDA device)."""
+    dev = resolve_device(device)
+    if not isinstance(arrays, Mapping):
+        arrays = arrays._asdict()
+    return Preintegrated(**{
+        n: torch.as_tensor(np.array(arrays[n], copy=True)).to(device=dev,
+                                                                dtype=dtype)
+        for n in Preintegrated._fields})
 
 def noise_covariance(acc_n, gyr_n, acc_w, gyr_w, dtype=torch.float32,
                      device=None) -> torch.Tensor:

@@ -9,6 +9,8 @@ LOAM distance matrix and Gauss-Newton normal equations need all of fp32.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -18,3 +20,13 @@ def set_fp32_policy() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+def full_precision(fn):
+    """Decorator: set the fp32 policy, then call `fn` (the counterpart of
+    the reference's `full_precision` on its solver entry points)."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        set_fp32_policy()
+        return fn(*args, **kwargs)
+    return wrapped

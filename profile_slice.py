@@ -6,6 +6,8 @@
     python3 profile_slice.py --drift-runs N [--package-root DIR]
     python3 profile_slice.py --global [--trace-dir build/profile]
     python3 profile_slice.py --frontend
+    python3 profile_slice.py --frame-step
+    python3 profile_slice.py --count-ops
 
 Drives the drift run of chip_smoke.py (40 sweeps of 16 × 900 points at the
 default SystemConfig) on cuda:0, each phase on a fresh mapper:
@@ -85,6 +87,25 @@ SystemConfig):
 4. imu: one preintegrate_batch (6 intervals × 64 slots) and one
    triangulate_window (256 × 7): launches, device ms by kernel group, ms a
    call.
+
+With --frame-step it profiles the window solve of mono VIO instead, on the
+F = 256 window of chip_smoke.py's phase 10 (W = 7, 64 IMU slots an
+interval, 5 ICP and 7 LPS rows, 8 LM iterations, marginalize-old):
+
+1. step: ms per vio.frame_step and its readback (host clock, device
+   drained, median of 10), kernel launches, device ms and busy share from
+   torch.profiler, host syncs, device ms by kernel group;
+2. parts: each part of the step called alone on the step's inputs, with
+   how often a step runs it: preintegration, triangulation, the extras,
+   assemble (and within it the vision, IMU, prior + anchor systems), the
+   Schur complement and Cholesky solve, the step and its selection,
+   evaluate_cost, _gauge_fix, both marginalizations and their two eigh
+   (15 × 15 and 97 × 97) alone: launches, device ms, ms a call, host
+   syncs.
+
+With --count-ops it runs on the CPU and needs no card: the aten operations
+(views left out) that one frame step of that window dispatches, at iters 8
+and 4 with either marginalization, and each part's.
 """
 
 from __future__ import annotations
@@ -561,6 +582,139 @@ def frontend_profile(torch, card) -> None:
               + f" [{card}]", flush=True)
 
 
+def frame_step_parts(torch, device, iters=8):
+    """The F = 256 window of chip_smoke.py's phase 10 on `device`, the
+    frame step's arguments (LiDAR rows on) and its parts, each as (name,
+    how often a step runs it, a call on the step's inputs); names that
+    start with a blank are inside the part above them."""
+    from mvil_fusion_torch.estimator import ba, factors as fac
+    from mvil_fusion_torch.estimator import state as st, vio
+    from mvil_fusion_torch.ops import preintegration as pre
+    from mvil_fusion_torch.ops import triangulate as tri
+    F = 256
+    win = smoke.VioWindow(torch, smoke.vio_world(smoke.VIO_LANDMARKS[F]),
+                          smoke.VIO_T0, F, device, seed=3)
+    s = win.start
+    eJ, er = vio._extras_body(s, win.icp, win.lps, False)
+    prob = win.problem()._replace(extra_J=eJ, extra_r=er, extra_x0=s,
+                                  anchor_ref=s)
+    a = ba.assemble(s, prob, win.focal)
+    mu = torch.full((), 1e-4, device=device)
+    dx, dl, _ = ba.lm_step(a, mu, win.fix_mask)
+    s_try = st.apply_delta(s, dx, dl)
+    s_new = vio._gauge_fix(s, s_try)
+    prob_p = prob._replace(prior=ba.marginalize_old(s_new, prob, win.focal))
+    A = torch.randn(112, 112, device=device)
+    parts = [
+        ("preintegrate_batch", 1, lambda: pre.preintegrate_batch(
+            *win.imu[:3], s.ba[:-1], s.bg[:-1], win.noise, win.imu[3])),
+        ("triangulation", 1, lambda: tri.triangulate_window(
+            *tri.camera_poses_from_body(s.p, s.q, s.tic, s.qic),
+            win.feats.obs, win.feats.mask, win.feats.start)),
+        ("extras (ICP, LPS, zero vel.)", 1, lambda: vio._extras_body(
+            s, win.icp, win.lps, False)),
+        ("assemble", iters, lambda: ba.assemble(s, prob, win.focal)),
+        ("  vision_system", iters, lambda: fac.vision_system(
+            s, win.feats, win.focal)),
+        ("  imu_system", iters, lambda: fac.imu_system(
+            s, prob.preints, prob.interval_mask, win.gravity)),
+        ("  prior + anchor", iters, lambda: (
+            fac.prior_system(prob_p.prior, s),
+            fac.anchor_system(s, s, 1e3, True))),
+        ("Schur + Cholesky solve", iters, lambda: ba.lm_step(
+            a, mu, win.fix_mask)),
+        ("apply_delta + select", iters, lambda: st.WindowState(*(
+            torch.where(mu > 0, x, y) for x, y in zip(
+                st.apply_delta(s, dx, dl), s)))),
+        ("evaluate_cost", iters + 1, lambda: ba.evaluate_cost(
+            s_try, prob, win.focal)),
+        ("_gauge_fix", 1, lambda: vio._gauge_fix(s, s_try)),
+        ("marginalize_old", 1, lambda: ba.marginalize_old(
+            s_new, prob, win.focal)),
+        ("marginalize_second_new", 0, lambda: ba.marginalize_second_new(
+            s_new, prob_p)),
+        ("  eigh 15x15", 0, lambda: torch.linalg.eigh(
+            A[:15, :15] @ A[:15, :15].T)),
+        ("  eigh 97x97", 0, lambda: torch.linalg.eigh(
+            A[:97, :97] @ A[:97, :97].T)),
+    ]
+    return win, win.step_args(lidar=True), parts
+
+
+def frame_step_profile(torch, card) -> None:
+    """--frame-step: the window solve of mono VIO by part."""
+    from mvil_fusion_torch.estimator import vio
+    iters = 8
+    win, args, parts = frame_step_parts(torch, "cuda:0", iters)
+
+    def step():
+        return vio.read_host_pack(win.step(args, iters, True)[4])
+
+    # 1. the whole step
+    wall = smoke.time_steps(torch, win, args, iters, True, 10, 3)
+    launches, dev_ms, kernels = smoke.profile_device(torch, step)
+    _, syncs = smoke.count_syncs(torch, step)
+    groups = collections.Counter()
+    for name, (_, ms) in kernels.items():
+        groups[_group(name)] += ms
+    print(f"step: F {win.feats.start.shape[0]}, iters {iters}, marg_old, "
+          f"LiDAR rows: {wall:.1f} ms (median of 10, host clock, device "
+          f"drained), {launches} kernel launches, {dev_ms:.3f} ms of device "
+          f"time, busy share {dev_ms / wall:.3f}, {syncs} host syncs; "
+          "device ms by kernel group: " + ", ".join(
+              f"{g} {ms:.3f}" for g, ms in groups.most_common())
+          + f" [{card}]", flush=True)
+
+    # 2. its parts, alone, on the step's inputs
+    total_l = total_d = 0.0
+    for name, per_step, fn in parts:
+        fn()
+        n_l, ms, _ = smoke.profile_device(torch, fn)
+        call_ms = smoke.time_ms(torch, fn, reps=10, warmup=2)
+        _, n_sync = smoke.count_syncs(torch, fn)
+        if not name.startswith(" "):
+            total_l += per_step * n_l
+            total_d += per_step * ms
+        print(f"part: {name:<30} x{per_step:<2} {n_l:6d} launches, "
+              f"{ms:7.3f} ms on the device, {call_ms:8.3f} ms a call, "
+              f"{n_sync} host syncs [{card}]", flush=True)
+    print(f"part: sum of the parts times their count per step: "
+          f"{total_l:.0f} launches, {total_d:.3f} ms on the device "
+          f"(the step: {launches}, {dev_ms:.3f})", flush=True)
+
+
+def count_ops() -> None:
+    """--count-ops: the aten operations (views left out) that one frame
+    step and each of its parts dispatch, on the CPU, with no card: what
+    the card would be handed kernel by kernel."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += not func.is_view
+            return func(*args, **(kwargs or {}))
+
+    def count(fn):
+        with Count() as c:
+            fn()
+        return c.n
+
+    win, args, parts = frame_step_parts(torch, "cpu")
+    win.step(args, 8, True)
+    for iters in (8, 4):
+        for marg_old in (True, False):
+            n = count(lambda: win.step(args, iters, marg_old))
+            print(f"ops: frame_step F {win.feats.start.shape[0]} iters "
+                  f"{iters} {'marg_old' if marg_old else 'marg_second_new'}"
+                  f": {n}", flush=True)
+    for name, per_step, fn in parts:
+        print(f"ops: {name:<30} x{per_step:<2} {count(fn)}", flush=True)
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace-dir", default="build/profile",
@@ -579,11 +733,20 @@ def main() -> int:
     ap.add_argument("--frontend", action="store_true",
                     help="profile the tracker's step by stage and the IMU "
                          "window and stop")
+    ap.add_argument("--frame-step", action="store_true",
+                    help="profile the window solve of mono VIO by part "
+                         "and stop")
+    ap.add_argument("--count-ops", action="store_true",
+                    help="count the operations a frame step dispatches, on "
+                         "the CPU (no card needed), and stop")
     ap.add_argument("--package-root", default=None,
                     help="take mvil_fusion_torch from this checkout")
     args = ap.parse_args()
     if args.package_root is not None:
         sys.path.insert(0, str(pathlib.Path(args.package_root).resolve()))
+    if args.count_ops:
+        count_ops()
+        return 0
     import torch
     smoke.check(torch.cuda.is_available(), "no CUDA device")
     card = smoke.card_line()
@@ -594,6 +757,9 @@ def main() -> int:
     print(f"package: {pathlib.Path(mvil_fusion_torch.__file__).parent}",
           flush=True)
     set_fp32_policy()
+    if args.frame_step:
+        frame_step_profile(torch, card)
+        return 0
     if args.frontend:
         frontend_profile(torch, card)
         return 0

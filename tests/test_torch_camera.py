@@ -15,6 +15,8 @@ from mvil_fusion_tpu import config as jconfig
 from mvil_fusion_tpu.frontend import camera as jcam
 from mvil_fusion_torch import config as tconfig
 from mvil_fusion_torch.frontend import camera as tcam
+from torch_threads import one_thread_and_warm_sqrt  # noqa: F401
+
 
 MODELS = {
     "pinhole": dict(),

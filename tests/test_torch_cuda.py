@@ -20,7 +20,11 @@ tracker on the card is held to the tracker on the CPU step by step, each
 step from the CPU's state and with the CPU's RANSAC samples: pixels within
 0.05 px, at most 2 of the 256 slots differing in validity (a threshold
 crossed by the card's fused multiply-adds); preintegration on the card to
-the CPU's within 1e-5, J and P within 1e-4 of their largest entry.
+the CPU's within 1e-5, J and P within 1e-4 of their largest entry.  The
+frame step of mono VIO on the card (F = 64, chip_smoke.py's phase-10
+window) is held to the step on the CPU with tests/test_torch_frame_step.py's
+tolerances, and waits for the card three times: its two eigh and the
+readback; triangulation alone never waits.
 """
 
 import warnings
@@ -31,6 +35,8 @@ import torch
 
 import chip_smoke
 from mvil_fusion_torch.config import SystemConfig
+from mvil_fusion_torch.estimator import state as est_state
+from mvil_fusion_torch.estimator import vio
 from mvil_fusion_torch.frontend.feature_tracker import FeatureTracker
 from mvil_fusion_torch.frontend.lidar_compensator import LidarCompensator
 from mvil_fusion_torch.io.synthetic import SyntheticTrajectory
@@ -40,7 +46,7 @@ from mvil_fusion_torch.mapping.local_mapping import LocalMapper
 from mvil_fusion_torch.ops import deskew
 from mvil_fusion_torch.ops import knn_topk as K
 from mvil_fusion_torch.ops import preintegration as pre
-from mvil_fusion_torch.ops import ransac, scancontext, voxel
+from mvil_fusion_torch.ops import ransac, scancontext, triangulate, voxel
 from mvil_fusion_torch.utils import nplie
 
 pytestmark = pytest.mark.cuda
@@ -462,3 +468,60 @@ def test_preintegration_on_card_matches_cpu(cuda):
     L, syncs = chip_smoke.count_syncs(torch,
                                       lambda: pre.sqrt_information(on_card))
     assert syncs == 0 and bool(torch.isfinite(L).all())
+
+
+def small_window(device, noise_px=chip_smoke.VIO_NOISE_PX):
+    """chip_smoke.py's phase-10 window at 64 slots."""
+    return chip_smoke.VioWindow(torch, chip_smoke.vio_world(1200),
+                                chip_smoke.VIO_T0, 64, device, seed=3,
+                                noise_px=noise_px)
+
+
+def test_window_state_defaults_to_the_card(cuda):
+    s = est_state.make_window_state(7, 256)
+    assert s.p.is_cuda and s.inv_depth.shape == (256,)
+
+
+def test_frame_step_on_card_matches_cpu(cuda):
+    out = {}
+    for dev in ("cpu", cuda):
+        win = small_window(dev)
+        for marg_old in (True, False):
+            out[str(dev), marg_old] = win.step(win.step_args(lidar=True), 8,
+                                               marg_old)
+    for marg_old in (True, False):
+        card, host = out[str(cuda), marg_old], out["cpu", marg_old]
+        hc, hh = vio.read_host_pack(card[4]), host[4].numpy()
+        np.testing.assert_allclose(hc[6:9], hh[6:9], rtol=0, atol=1e-3)
+        np.testing.assert_allclose(hc[13:16], hh[13:16], rtol=0, atol=5e-3)
+        np.testing.assert_allclose(hc[27:], hh[27:], rtol=1e-3)
+        assert abs(hc[5] - hh[5]) <= 1e-3 * abs(hh[5])
+        J = card[1].J.double().cpu()
+        Jh = host[1].J.double()
+        H, Hh = J.T @ J, Jh.T @ Jh
+        assert float((H - Hh).abs().max()) <= 1e-3 * float(Hh.abs().max())
+
+
+def test_frame_step_waits_three_times(cuda):
+    """The two eigh of the marginalization and the readback; nothing else
+    in the step waits for the card."""
+    win = small_window(cuda)
+    args = win.step_args(lidar=True)
+    for marg_old in (True, False):
+        win.step(args, 4, marg_old)
+        _, syncs = chip_smoke.count_syncs(torch, lambda: vio.read_host_pack(
+            win.step(args, 4, marg_old)[4]))
+        assert syncs == 3
+
+
+def test_triangulation_does_not_wait(cuda):
+    win = small_window(cuda, noise_px=0.0)
+    s = win.truth
+    fn = lambda: triangulate.triangulate_window(  # noqa: E731
+        *triangulate.camera_poses_from_body(s.p, s.q, s.tic, s.qic),
+        win.feats.obs, win.feats.mask, win.feats.start)
+    (inv, good), syncs = chip_smoke.count_syncs(torch, fn)
+    assert syncs == 0
+    ok = good & win.feats.valid
+    rel = ((inv - s.inv_depth).abs() / s.inv_depth)[ok]
+    assert int(ok.sum()) > 40 and float(rel.max()) < 1e-3

@@ -31,25 +31,11 @@ from mvil_fusion_tpu.ops import image as jim
 from mvil_fusion_tpu.ops import klt as jklt
 from mvil_fusion_torch import config as tconfig
 from mvil_fusion_torch.frontend.feature_tracker import FeatureTracker
+from torch_threads import one_thread_and_warm_sqrt  # noqa: F401
 
 H, W = 240, 320
 CAMERA = dict(width=W, height=H, fx=200.0, fy=200.0, cx=160.0, cy=120.0,
               k1=0, k2=0, p1=0, p2=0)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread_and_warm_sqrt():
-    """One intra-op thread while this module runs: its tensors are small,
-    and several test processes that each spin up a thread pool per op
-    slow one another down many times over.  Also take the first
-    vectorized sqrt here: it has been seen to return a 12-bit
-    approximation (relative error 3e-4 over one pool thread's chunk, in
-    one process of ten), which a test that compares bits cannot take."""
-    n = torch.get_num_threads()
-    torch.sqrt(torch.rand(1 << 20))
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def make_cfg(module, camera=CAMERA, **tk):

@@ -40,6 +40,8 @@ from mvil_fusion_torch.mapping import pose_graph as tpg
 from mvil_fusion_torch.mapping.local_mapping import LocalMapper, Submap
 from mvil_fusion_torch.ops import deskew
 from mvil_fusion_torch.utils import nplie
+from torch_threads import one_thread_and_warm_sqrt  # noqa: F401
+
 
 LOOP_KW = dict(skip_recent_poses=6, poses_before_reclosing=4,
                proximity_threshold=4.0, max_tolerable_fitness=0.6,

@@ -23,6 +23,7 @@ from scipy.signal import convolve2d
 
 from mvil_fusion_tpu.ops import image as jim
 from mvil_fusion_torch.ops import image as tim
+from torch_threads import one_thread_and_warm_sqrt  # noqa: F401
 
 
 def texture(seed, H=120, W=160, lo=0.0, hi=255.0):
@@ -52,17 +53,6 @@ IMAGES = {"texture": texture(0), "low contrast": texture(1, lo=100, hi=140),
           "dots": dots(2), "odd size": texture(3, 104, 136)[:101, :131]}
 
 _jclahe = jax.jit(jim.clahe)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread while this module runs: its tensors are small,
-    and several test processes that each spin up a thread pool per op
-    slow one another down many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_clahe_parts(img, tiles=(8, 8), n_bins=256, clip_limit=3.0):

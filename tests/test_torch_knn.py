@@ -17,6 +17,8 @@ from mvil_fusion_tpu.ops import loam_icp as jicp
 from mvil_fusion_tpu.ops.pallas_knn import knn_topk as pallas_knn_topk
 from mvil_fusion_torch.ops import knn_topk as K
 from mvil_fusion_torch.ops import loam_icp as ticp
+from torch_threads import one_thread_and_warm_sqrt  # noqa: F401
+
 
 SHAPES = [(100, 1000, 5), (256, 4096, 10), (37, 513, 3)]
 

@@ -22,6 +22,8 @@ from mvil_fusion_torch.frontend.lidar_compensator import LidarCompensator
 from mvil_fusion_torch.mapping.local_mapping import LocalMapper
 from mvil_fusion_torch.ops import knn_topk as K
 from mvil_fusion_torch.utils.device import resolve_device
+from torch_threads import one_thread_and_warm_sqrt  # noqa: F401
+
 
 H100_SMS = 132
 PLAN_SHAPES = [(256, 16384, 5), (4096, 32768, 5), (4096, 32768, 10),

@@ -45,6 +45,8 @@ from mvil_fusion_torch.ops import loam_features as tlf
 from mvil_fusion_torch.ops import loam_icp as ticp
 from mvil_fusion_torch.ops import voxel as tvox
 from mvil_fusion_torch.utils import lie as tlie
+from torch_threads import one_thread_and_warm_sqrt  # noqa: F401
+
 
 TRAJ = SyntheticTrajectory(duration=8.0, w_amp=(0.2, 0.15, 0.4),
                            w_freq=(0.2, 0.15, 0.25),

@@ -32,6 +32,8 @@ from mvil_fusion_torch.frontend.lidar_compensator import LidarCompensator
 from mvil_fusion_torch.mapping import local_mapping as tlm
 from mvil_fusion_torch.ops import deskew as tdsk
 from mvil_fusion_torch.utils import lie as tlie
+from torch_threads import one_thread_and_warm_sqrt  # noqa: F401
+
 
 TRAJ = SyntheticTrajectory(duration=8.0, w_amp=(0.2, 0.15, 0.4),
                            w_freq=(0.2, 0.15, 0.25),

@@ -22,6 +22,8 @@ import chip_smoke
 from mvil_fusion_tpu.mapping import pose_graph as jpg
 from mvil_fusion_tpu.utils import lie as jlie
 from mvil_fusion_torch.mapping import pose_graph as tpg
+from torch_threads import one_thread_and_warm_sqrt  # noqa: F401
+
 
 _jsolve = jax.jit(jpg.solve, static_argnames=("iters",))
 _jsolve_cg = jax.jit(jpg.solve_cg, static_argnames=("iters", "cg_iters"))

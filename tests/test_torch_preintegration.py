@@ -25,6 +25,7 @@ from mvil_fusion_tpu.ops import preintegration as jpre
 from mvil_fusion_tpu.io.synthetic import SyntheticTrajectory
 from mvil_fusion_torch.ops import preintegration as tpre
 from mvil_fusion_torch.utils import lie as tlie
+from torch_threads import one_thread_and_warm_sqrt  # noqa: F401
 
 NOISE = (0.02065, 0.00519, 0.00667, 0.00088056)
 BA_TRUE = np.asarray([0.05, -0.02, 0.03])
@@ -33,17 +34,6 @@ CAP = 24
 T = torch.as_tensor
 
 _jbatch = jax.jit(jpre.preintegrate_batch)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread while this module runs: its tensors are small,
-    and several test processes that each spin up a thread pool per op
-    slow one another down many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -19,23 +19,9 @@ import torch
 
 from mvil_fusion_tpu.ops import ransac as jran
 from mvil_fusion_torch.ops import ransac as tran
+from torch_threads import one_thread_and_warm_sqrt  # noqa: F401
 
 N, N_OUT, FOCAL, N_HYP = 120, 25, 460.0, 128
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread_and_warm_sqrt():
-    """One intra-op thread while this module runs: its tensors are small,
-    and several test processes that each spin up a thread pool per op
-    slow one another down many times over.  Also take the first
-    vectorized sqrt here: it has been seen to return a 12-bit
-    approximation (relative error 3e-4 over one pool thread's chunk, in
-    one process of ten), which a test that compares bits cannot take."""
-    n = torch.get_num_threads()
-    torch.sqrt(torch.rand(1 << 20))
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 _jransac = jax.jit(jran.fundamental_ransac,
                    static_argnames=("threshold", "n_hyp"))

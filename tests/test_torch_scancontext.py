@@ -17,6 +17,8 @@ import torch
 from mvil_fusion_tpu.io.synthetic_lidar import BoxWorld
 from mvil_fusion_tpu.ops import scancontext as jsc
 from mvil_fusion_torch.ops import scancontext as tsc
+from torch_threads import one_thread_and_warm_sqrt  # noqa: F401
+
 
 _jdesc = jax.jit(jsc.make_descriptor,
                  static_argnames=("n_ring", "n_sector", "max_radius"))

@@ -33,6 +33,8 @@ from mvil_fusion_tpu.utils import lie as jlie
 from mvil_fusion_torch.ops import vgicp as tvg
 from mvil_fusion_torch.ops import voxel as tvox
 from mvil_fusion_torch.utils import lie as tlie
+from torch_threads import one_thread_and_warm_sqrt  # noqa: F401
+
 
 TRAJ = SyntheticTrajectory(duration=4.0, w_amp=(0.3, 0.25, 0.6),
                            w_freq=(0.3, 0.25, 0.35),

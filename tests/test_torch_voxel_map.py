@@ -17,6 +17,8 @@ import torch
 
 from mvil_fusion_tpu.ops import voxel as jvox
 from mvil_fusion_torch.ops import voxel as tvox
+from torch_threads import one_thread_and_warm_sqrt  # noqa: F401
+
 
 TABLE = 1 << 12
 LEAF = 0.5
