@@ -102,6 +102,27 @@ Phases, one line each (any failure raises and the script exits non-zero):
    per step; the same at F = 1024 (13000 landmarks; 10 after 2), timed
    but not gated.
 
+11. vio: mono VIO end to end on cuda:0: VIOEstimator() (its default
+   device) at the full width of the default EstimatorConfig (W = 7, 256
+   feature slots, 64 IMU slots an interval, 8 solver iterations; the
+   identity extrinsic and td held fixed, g 9.795, enforce_budget off) fed
+   frame by frame through process_imu/process_features with
+   tests/test_vio_e2e.py's stream (vio_sequence: 500 landmarks at up to 8
+   m, 200 Hz IMU with the config's noise and biases ba (0.05, -0.03,
+   0.08), bg (0.01, -0.015, 0.02), 10 Hz frames of at most 150 features
+   with 0.3 px of noise, t from 0.5 to 6.0 s: 55 frames, seed 0).  Gates,
+   with the pack read back at every keyframe and again deferred to the
+   next: initialized (NON_LINEAR), 0 failures, more than 40 poses, ATE
+   after the 4-DoF alignment below 0.35 m, the newest frame's bg within
+   0.015 of the truth; in sync mode exactly 3 host waits per steady-state
+   keyframe (the two eigh and the readback; the host class adds none);
+   the deferred trajectory within 1e-4 m of the sync one (the card's
+   float atomics need not sum in the same order twice).  Prints ms per init attempt
+   by stage, the chosen anchor l and path, solve_block_s per keyframe
+   (median, max), host bookkeeping per keyframe outside frame_step, kernel
+   launches and device ms of one keyframe, and the share of deferred packs
+   done when harvested.
+
 The second-to-last line is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}.  Neither JAX nor the JAX package is
 imported: the configuration and the synthetic sweeps come from the port.
@@ -1347,6 +1368,218 @@ def phase_window(torch, card):
               f"{dev_ms / ms[8, True]:.3f} [{card}]", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# mono VIO end to end: phase 11
+# ---------------------------------------------------------------------------
+
+SEQ_T0 = 0.5
+SEQ_T_END = 6.0            # 55 frames at 10 Hz
+SEQ_BA = (0.05, -0.03, 0.08)
+SEQ_BG = (0.01, -0.015, 0.02)
+
+
+def sequence_world():
+    """tests/test_vio_e2e.py::make_world(8.0) on the port's synthetic
+    world: 500 landmarks at up to 8 m around a trajectory with strong
+    rotation."""
+    from mvil_fusion_torch.io.synthetic import (SyntheticTrajectory,
+                                                SyntheticWorld)
+    traj = SyntheticTrajectory(duration=8.0,
+                               w_amp=(0.5, 0.45, 0.55),
+                               w_freq=(0.4, 0.33, 0.47),
+                               p_amp=(1.2, 1.0, 0.4),
+                               p_freq=(0.33, 0.41, 0.23))
+    return SyntheticWorld(traj=traj, n_landmarks=500, landmark_radius=8.0)
+
+
+def sequence_config(max_features=256):
+    """tests/test_vio_e2e.py::make_cfg at the default estimator width: the
+    identity extrinsic held fixed (the synthetic world has none to
+    recover), td fixed at 0, 8 solver iterations, g 9.795."""
+    import dataclasses
+    from mvil_fusion_torch.config import (EstimatorConfig, ImuConfig,
+                                          SystemConfig)
+    return SystemConfig(
+        estimator=dataclasses.replace(
+            EstimatorConfig(), max_features=max_features,
+            ric=(1.0, 0, 0, 0, 1.0, 0, 0, 0, 1.0), tic=(0.0, 0.0, 0.0),
+            td_init=0.0, estimate_extrinsic=0, estimate_td=False,
+            max_solver_iters=8),
+        imu=ImuConfig(g_norm=9.795))
+
+
+def vio_sequence(world, cfg, t_end=SEQ_T_END, ba=SEQ_BA, bg=SEQ_BG):
+    """The sensor stream of tests/test_vio_e2e.py::run_sequence from
+    SEQ_T0 to t_end, drawn in the same order from one generator seeded
+    with SEED: per 10 Hz frame, the 200 Hz IMU samples since the previous
+    frame (the config's noise and the biases ba, bg), then the frame's
+    first ≤ 150 visible landmarks with 0.3 px of noise on the normalized
+    plane.  A list of dicts: t, imu (times, acc, gyr), ids, norm, vel,
+    truth (p, q, v)."""
+    rng = np.random.default_rng(SEED)
+    traj = world.traj
+    frame_times = np.arange(SEQ_T0, t_end, 0.1)
+    frames, prev_norm, prev_t = [], {}, None
+    for fi, t in enumerate(frame_times):
+        t_prev = frame_times[fi - 1] if fi > 0 else t - 0.1
+        acc, gyr, _, ts = traj.imu_sequence(
+            max(t_prev, 0.0) + 1e-9, t, 200.0, ba=ba, bg=bg,
+            noise_acc=cfg.imu.acc_n, noise_gyr=cfg.imu.gyr_n, rng=rng)
+        _, norm, _, vis = world.project(t, np.eye(3), np.zeros(3))
+        ids = np.nonzero(vis)[0][:150]
+        n = norm[ids] + rng.normal(scale=0.3 / 460.0, size=(len(ids), 2))
+        vel = np.zeros((len(ids), 2), np.float32)
+        if prev_t is not None:
+            for j, fid in enumerate(ids):
+                if fid in prev_norm:
+                    vel[j] = (n[j] - prev_norm[fid]) / (t - prev_t)
+        prev_norm = {fid: n[j] for j, fid in enumerate(ids)}
+        prev_t = t
+        frames.append(dict(t=t, imu=(ts, acc, gyr), ids=ids,
+                           norm=n.astype(np.float32), vel=vel,
+                           truth=traj.state_at(t)))
+    return frames
+
+
+def feed(est, frame):
+    """One frame of vio_sequence into an estimator, as the node feeds it:
+    its IMU samples, then its features."""
+    ts, acc, gyr = frame["imu"]
+    for k in range(len(ts)):
+        est.process_imu(ts[k], acc[k], gyr[k])
+    est.process_features(frame["t"], frame["ids"], frame["norm"],
+                         frame["vel"])
+
+
+def ate_4dof(trajectory, frames):
+    """tests/test_vio_e2e.py::align_umeyama_4dof: RMS position error after
+    the yaw + translation alignment of an estimator's trajectory (t, p, q,
+    v) to the truth at the nearest frame time."""
+    t_est = np.asarray([p for (_, p, _, _) in trajectory])
+    gt_times = np.asarray([f["t"] for f in frames])
+    t_gt = np.asarray([frames[int(np.argmin(np.abs(gt_times - t)))]
+                       ["truth"][0] for (t, _, _, _) in trajectory])
+    c_est = t_est - t_est.mean(0)
+    c_gt = t_gt - t_gt.mean(0)
+    num = np.sum(c_gt[:, 0] * c_est[:, 1] - c_gt[:, 1] * c_est[:, 0])
+    den = np.sum(c_gt[:, 0] * c_est[:, 0] + c_gt[:, 1] * c_est[:, 1])
+    yaw = np.arctan2(num, den)
+    c, s = np.cos(yaw), np.sin(yaw)
+    R = np.asarray([[c, s, 0], [-s, c, 0], [0, 0, 1.0]])
+    err = np.linalg.norm(c_est @ R.T + t_gt.mean(0) - t_gt, axis=1)
+    return float(np.sqrt((err ** 2).mean()))
+
+
+def run_vio(torch, frames, cfg, defer, profile_at=None):
+    """The port's estimator on the card (its default device) over `frames`,
+    frame by frame through process_imu/process_features: (estimator, one
+    record per frame: its wall ms, host syncs as torch.cuda's sync debug
+    mode counts them, whether it ran a steady-state solve and that solve's
+    solve_block_s).  In sync mode the device is drained before each frame;
+    frame `profile_at` runs under torch.profiler instead and its record
+    holds (kernel launches, device ms)."""
+    from mvil_fusion_torch.estimator.vio import VIOEstimator
+    est = VIOEstimator(cfg)
+    check(est.device.type == "cuda" and est.state.p.is_cuda,
+          "VIOEstimator() is not on the card")
+    est.defer_readback = defer
+    recs = []
+    for i, f in enumerate(frames):
+        steady = est.status == est.NON_LINEAR
+        solves = est._solves
+        if i == profile_at:
+            check(steady, f"frame {i} is not a steady-state keyframe")
+            recs.append(dict(profile=profile_device(
+                torch, lambda: feed(est, f))[:2]))
+            continue
+        if not defer:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, syncs = count_syncs(torch, lambda: feed(est, f))
+        wall = 1e3 * (time.perf_counter() - t)
+        solved = steady and est._solves > solves
+        recs.append(dict(wall=wall, syncs=syncs, steady=solved,
+                         block=1e3 * est.solve_info["solve_block_s"]
+                         if solved else None))
+    est.flush()
+    torch.cuda.synchronize()
+    return est, recs
+
+
+def vio_gates(est, frames, what):
+    """The gates of one phase-11 run: (its ATE, its bg error)."""
+    check(est.status == est.NON_LINEAR, f"{what}: not initialized")
+    check(est.failures == 0, f"{what}: {est.failures} failures")
+    check(len(est.trajectory) > 40,
+          f"{what}: {len(est.trajectory)} poses, want > 40")
+    traj = np.asarray([p for _, p, _, _ in est.trajectory])
+    check(bool(np.isfinite(traj).all()), f"{what}: poses not finite")
+    ate = ate_4dof(est.trajectory, frames)
+    bg = est.state.bg[-1].cpu().numpy()
+    bg_err = float(np.abs(bg - np.asarray(SEQ_BG)).max())
+    check(ate < 0.35, f"{what}: ATE {ate} m")
+    check(bg_err < 0.015, f"{what}: bg {bg} against {SEQ_BG}")
+    return ate, bg_err
+
+
+def phase_vio(torch, card):
+    """Mono VIO end to end on the card; see the module docstring."""
+    from mvil_fusion_torch.ops import knn_topk as K
+    cfg = sequence_config()
+    frames = vio_sequence(sequence_world(), cfg)
+    K.knn_topk_cuda.launches = 0
+    profile_at = len(frames) - 10
+    sync, recs = run_vio(torch, frames, cfg, False, profile_at)
+    ate, bg_err = vio_gates(sync, frames, "sync")
+    info = sync.solve_info
+    steady = [r for r in recs if r.get("steady")]
+    waits = sorted({r["syncs"] for r in steady})
+    for k, ms in enumerate(info["init_ms"]):
+        print(f"vio: init attempt {k + 1} of {len(info['init_ms'])}: "
+              f"{sum(ms.values()):.1f} ms (essential-matrix candidates "
+              f"{ms['essential']:.1f}, SfM with its BA {ms['sfm']:.1f}, "
+              f"stage A {ms['stage_a']:.1f}, linear alignment "
+              f"{ms['linear']:.1f}, stage B {ms['stage_b']:.1f}) [{card}]",
+              flush=True)
+    init = info["init"]
+    block = np.asarray([r["block"] for r in steady])
+    host = np.asarray([r["wall"] - r["block"] for r in steady])
+    launches, dev_ms = recs[profile_at]["profile"]
+    print(f"vio: {len(frames)} frames, initialized with l {init['l']} by "
+          f"{init['path']} (scale {np.round(init['scale'], 4).tolist()}); "
+          f"{len(sync.trajectory)} poses, {sync.failures} failures, ATE "
+          f"{ate:.4f} m after 4-DoF alignment, newest bg "
+          f"{np.round(sync.state.bg[-1].cpu().numpy(), 4).tolist()} (error "
+          f"{bg_err:.4f}); k-NN launches {K.knn_topk_cuda.launches}",
+          flush=True)
+    print(f"vio: sync readback, {len(steady)} steady-state keyframes: "
+          f"solve_block_s median {np.median(block):.1f} ms, max "
+          f"{block.max():.1f} ms; host bookkeeping outside the step median "
+          f"{np.median(host):.2f} ms, max {host.max():.2f} ms "
+          f"({np.median(host) / np.median(block):.4f} of the step); host "
+          f"waits per keyframe {waits} (expected [3]); one keyframe "
+          f"({profile_at}) under torch.profiler: {launches} kernel launches, "
+          f"{dev_ms:.3f} ms of device time [{card}]", flush=True)
+    check(waits == [3], f"host waits per steady keyframe {waits}")
+
+    dfr, recs_d = run_vio(torch, frames, cfg, True)
+    ate_d, _ = vio_gates(dfr, frames, "deferred")
+    check(len(dfr.trajectory) == len(sync.trajectory),
+          "deferred and sync trajectories differ in length")
+    gap = max(float(np.abs(a[1] - b[1]).max())
+              for a, b in zip(sync.trajectory, dfr.trajectory))
+    steady_d = [r for r in recs_d if r.get("steady")]
+    info_d = dfr.solve_info
+    print(f"vio: deferred readback: ATE {ate_d:.4f} m, trajectory within "
+          f"{gap:.2e} m of the sync run's; {info_d['harvests_ready']} of "
+          f"{info_d['harvests']} packs done when harvested; counted host "
+          f"waits per keyframe {sorted({r['syncs'] for r in steady_d})} "
+          f"(the two eigh; the harvest waits on an event); wall per "
+          f"keyframe median {np.median([r['wall'] for r in steady_d]):.1f} "
+          f"ms [{card}]", flush=True)
+    check(gap < 1e-4, f"deferred trajectory {gap} m from sync")
+
+
 def main() -> int:
     import torch
     check(torch.cuda.is_available(),
@@ -1416,6 +1649,9 @@ def main() -> int:
 
     # 10. the window solve of mono VIO on the card
     phase_window(torch, card)
+
+    # 11. mono VIO end to end on the card
+    phase_vio(torch, card)
 
     print(json.dumps({"kernels": [{
         "name": "knn_topk", "route": "cuda",

@@ -7,6 +7,7 @@
     python3 profile_slice.py --global [--trace-dir build/profile]
     python3 profile_slice.py --frontend
     python3 profile_slice.py --frame-step
+    python3 profile_slice.py --vio
     python3 profile_slice.py --count-ops
 
 Drives the drift run of chip_smoke.py (40 sweeps of 16 × 900 points at the
@@ -103,9 +104,32 @@ interval, 5 ICP and 7 LPS rows, 8 LM iterations, marginalize-old):
    (15 × 15 and 97 × 97) alone: launches, device ms, ms a call, host
    syncs.
 
+With --vio it profiles mono VIO end to end instead: VIOEstimator on
+cuda:0 over the stream of chip_smoke.py's phase 11 (55 frames, 256 feature
+slots, sync readback):
+
+1. wall: ms per steady-state keyframe split into its parts, each part
+   timed on the host clock with the device drained at its end: intake
+   (the IMU samples and the frame's observations, the IMU interval), the
+   keyframe decision (_check_parallax), slot assignment and table fills,
+   the tables' upload, frame_step, the readback, the slide with its track
+   shifts, and the rest of the host bookkeeping (mirrors, trajectory);
+   medians over the keyframes; then one init attempt by stage (the
+   essential-matrix candidates, SfM with its BA, stage A, linear
+   alignment, stage B, and the rest: preintegration, the gravity
+   alignment, triangulation);
+2. profile: a second run of frames 1–13, each part of the init attempt's
+   frame and of frame 13 under its own torch.profiler: kernel launches,
+   device ms and host syncs per part;
+3. again: the init attempt again, by stage, on the card (the kernels it
+   uses loaded by then) and with the estimator on the host's CPU: what
+   moving the init chain off the card would give.
+
 With --count-ops it runs on the CPU and needs no card: the aten operations
 (views left out) that one frame step of that window dispatches, at iters 8
-and 4 with either marginalization, and each part's.
+and 4 with either marginalization, and each part's; then those that one
+steady-state keyframe of the estimator dispatches on phase 11's stream,
+frame_step apart from the host class's own, and one init attempt's.
 """
 
 from __future__ import annotations
@@ -683,6 +707,156 @@ def frame_step_profile(torch, card) -> None:
           f"(the step: {launches}, {dev_ms:.3f})", flush=True)
 
 
+VIO_PARTS = ("check_parallax", "table fills", "upload", "frame_step",
+             "readback", "slide")
+INIT_STAGES = (("essential", "essential_relative_pose"),
+               ("sfm", "global_sfm"), ("stage_a", "estimate_ric_td_bg"),
+               ("linear", "linear_alignment"),
+               ("stage_b", "estimate_vel_g_s_tic"))
+SFM_PARTS = (("sfm: pnp", "pnp"), ("sfm: BA", "_sfm_ba"))
+
+
+def instrument_vio(est, around, stages=INIT_STAGES):
+    """Route each part of est's keyframes and each of the init attempts'
+    `stages` (part, function of initialization.py) through around(part,
+    fn, *args).  Returns a function that undoes the module-level part of
+    it."""
+    from mvil_fusion_torch.estimator import initialization as vinit
+    from mvil_fusion_torch.estimator import vio
+    wrap = lambda part, fn: (  # noqa: E731
+        lambda *a, **k: around(part, fn, *a, **k))
+    est._check_parallax = wrap("check_parallax", est._check_parallax)
+    for name in ("_assign_slots", "_fill_feature_tables",
+                 "_fill_imu_tables"):
+        setattr(est, name, wrap("table fills", getattr(est, name)))
+    est._tables.upload = wrap("upload", est._tables.upload)
+    est._frame_step = wrap("frame_step", est._frame_step)
+    est._slide = wrap("slide", est._slide)
+    saved = [(vio, "read_host_pack", vio.read_host_pack)]
+    vio.read_host_pack = wrap("readback", vio.read_host_pack)
+    for stage, fn in stages:
+        saved.append((vinit, fn, getattr(vinit, fn)))
+        setattr(vinit, fn, wrap(stage, getattr(vinit, fn)))
+
+    def undo():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return undo
+
+
+def vio_profile(torch, card) -> None:
+    """--vio: mono VIO end to end by part of a keyframe and stage of an
+    init attempt."""
+    from mvil_fusion_torch.estimator.vio import VIOEstimator
+    cfg = smoke.sequence_config()
+    frames = smoke.vio_sequence(smoke.sequence_world(), cfg)
+
+    # 1. wall by part, device drained at the end of each part
+    est = VIOEstimator(cfg)
+    spent = collections.Counter()
+
+    def timed(part, fn, *a, **k):
+        t = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        spent[part] += 1e3 * (time.perf_counter() - t)
+        return out
+    undo = instrument_vio(est, timed, INIT_STAGES + SFM_PARTS)
+    rows, init_row = [], None
+    try:
+        for f in frames:
+            steady = est.status == est.NON_LINEAR
+            spent.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            smoke.feed(est, f)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t)
+            row = dict(spent, wall=wall)
+            if steady:
+                rows.append(row)
+            elif "essential" in spent:
+                init_row = row
+    finally:
+        undo()
+    smoke.check(est.status == est.NON_LINEAR and len(rows) > 40,
+                f"{len(rows)} steady-state keyframes")
+    med = {k: statistics.median(r.get(k, 0.0) for r in rows)
+           for k in ("wall",) + VIO_PARTS}
+    rest = [r["wall"] - sum(r.get(k, 0.0) for k in VIO_PARTS) for r in rows]
+    print(f"wall: {len(rows)} steady-state keyframes, ms per keyframe "
+          f"(median, host clock, device drained after each part): whole "
+          f"{med['wall']:.1f}; " + ", ".join(
+              f"{k} {med[k]:.2f}" for k in VIO_PARTS)
+          + f", intake and the rest {statistics.median(rest):.2f} [{card}]",
+          flush=True)
+    if init_row is not None:
+        parts = [k for k, _ in INIT_STAGES] + list(VIO_PARTS)
+        rest = init_row["wall"] - sum(init_row.get(k, 0.0) for k in parts)
+        print(f"wall: the frame of the init attempt that succeeded, with "
+              f"its first solve: {init_row['wall']:.1f} ms; " + ", ".join(
+                  f"{k} {init_row.get(k, 0.0):.1f}" for k in parts)
+              + f", the rest (preintegration, alignment, triangulation) "
+              f"{rest:.1f}; within sfm: " + ", ".join(
+                  f"{k[5:]} {init_row.get(k, 0.0):.1f}" for k, _ in SFM_PARTS)
+              + f" [{card}]", flush=True)
+
+    # 2. launches, device ms and host syncs by part, each part of the init
+    # frame and of keyframe 12 under its own profiler
+    est = VIOEstimator(cfg)
+    prof = collections.defaultdict(lambda: [0, 0.0, 0])
+
+    def profiled(part, fn, *a, **k):
+        box = []
+        launches, dev_ms, _ = smoke.profile_device(torch, lambda: box.append(
+            smoke.count_syncs(torch, lambda: fn(*a, **k))))
+        result, syncs = box[0]
+        prof[part][0] += launches
+        prof[part][1] += dev_ms
+        prof[part][2] += syncs
+        return result
+    active = [False]
+
+    def when_active(part, fn, *a, **k):
+        if active[0]:
+            return profiled(part, fn, *a, **k)
+        return fn(*a, **k)
+    undo = instrument_vio(est, when_active)
+    try:
+        for i, f in enumerate(frames[:13]):
+            initial = est.status == est.INITIAL
+            active[0] = i == 12 or (initial
+                                    and i >= cfg.estimator.window_size)
+            prof.clear()
+            smoke.feed(est, f)
+            if active[0] and (i == 12 or "essential" in prof):
+                what = f"frame {i + 1} (init attempt)" if initial \
+                    else "frame 13"
+                n, ms = (sum(v[j] for v in prof.values()) for j in (0, 1))
+                print(f"profile: {what}: {n} kernel launches, {ms:.3f} ms "
+                      f"of device time [{card}]", flush=True)
+                for part, (n, ms, sy) in prof.items():
+                    print(f"profile:   {part:<16} {n:6d} launches, "
+                          f"{ms:8.3f} ms on the device, {sy} host syncs",
+                          flush=True)
+    finally:
+        undo()
+    smoke.check(est.status == est.NON_LINEAR, "not initialized by frame 13")
+
+    # 3. the same init attempt again on the card, its kernels loaded by
+    # the passes above, and with the estimator on the host's CPU
+    for dev in ("cuda:0", "cpu"):
+        est = VIOEstimator(cfg, device=dev)
+        for f in frames[:cfg.estimator.window_size + 1]:
+            smoke.feed(est, f)
+        smoke.check(est.status == est.NON_LINEAR, f"not initialized on {dev}")
+        for ms in est.solve_info["init_ms"]:
+            print(f"again: init attempt on {dev} ({torch.get_num_threads()}"
+                  f" CPU threads): {sum(ms.values()):.1f} ms; " + ", ".join(
+                      f"{k} {v:.1f}" for k, v in ms.items()) + f" [{card}]",
+                  flush=True)
+
+
 def count_ops() -> None:
     """--count-ops: the aten operations (views left out) that one frame
     step and each of its parts dispatch, on the CPU, with no card: what
@@ -715,6 +889,36 @@ def count_ops() -> None:
     for name, per_step, fn in parts:
         print(f"ops: {name:<30} x{per_step:<2} {count(fn)}", flush=True)
 
+    # the estimator on phase 11's stream: each frame's operations, those
+    # of its frame_step apart
+    from mvil_fusion_torch.estimator.vio import VIOEstimator
+    cfg = smoke.sequence_config()
+    frames = smoke.vio_sequence(smoke.sequence_world(), cfg,
+                                t_end=smoke.SEQ_T0 + 1.45)
+    est = VIOEstimator(cfg, device="cpu")
+    step = est._frame_step
+    inner = []
+
+    def counted_step(d):
+        with Count() as c:
+            out = step(d)
+        inner.append(c.n)
+        return out
+    est._frame_step = counted_step
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        for i, f in enumerate(frames):
+            initial = est.status == est.INITIAL
+            inner.clear()
+            n = count(lambda: smoke.feed(est, f))
+            if initial and i < cfg.estimator.window_size:
+                continue
+            what = "init attempt" if initial else "steady-state keyframe"
+            print(f"ops: frame {i + 1}, {what} "
+                  f"({'marg_old' if est.marg_old else 'marg_second_new'}): "
+                  f"{n} in all, frame_step {sum(inner)}, the rest "
+                  f"{n - sum(inner)}", flush=True)
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace-dir", default="build/profile",
@@ -736,6 +940,9 @@ def main() -> int:
     ap.add_argument("--frame-step", action="store_true",
                     help="profile the window solve of mono VIO by part "
                          "and stop")
+    ap.add_argument("--vio", action="store_true",
+                    help="profile mono VIO end to end by part of a keyframe "
+                         "and stage of an init attempt, and stop")
     ap.add_argument("--count-ops", action="store_true",
                     help="count the operations a frame step dispatches, on "
                          "the CPU (no card needed), and stop")
@@ -759,6 +966,9 @@ def main() -> int:
     set_fp32_policy()
     if args.frame_step:
         frame_step_profile(torch, card)
+        return 0
+    if args.vio:
+        vio_profile(torch, card)
         return 0
     if args.frontend:
         frontend_profile(torch, card)

@@ -24,7 +24,15 @@ the CPU's within 1e-5, J and P within 1e-4 of their largest entry.  The
 frame step of mono VIO on the card (F = 64, chip_smoke.py's phase-10
 window) is held to the step on the CPU with tests/test_torch_frame_step.py's
 tolerances, and waits for the card three times: its two eigh and the
-readback; triangulation alone never waits.
+readback; triangulation alone never waits.  Mono VIO end to end
+(``VIOEstimator`` on chip_smoke.py's phase-11 stream at 128 feature slots)
+on the card is held to the same estimator on the CPU: both pass the ATE
+gate of tests/test_vio_e2e.py and their trajectories stay within 2e-2 m
+of each other (LM trials decided at the cost's rounding go either way
+under the card's float atomics; see tests/test_torch_vio_estimator.py);
+it waits three times per steady-state keyframe, deferred readback gives
+the sync run's trajectory within 1e-4 m, and the pinned tables are never
+refilled while their copy is in flight.
 """
 
 import warnings
@@ -37,6 +45,7 @@ import chip_smoke
 from mvil_fusion_torch.config import SystemConfig
 from mvil_fusion_torch.estimator import state as est_state
 from mvil_fusion_torch.estimator import vio
+from mvil_fusion_torch.estimator.vio import VIOEstimator
 from mvil_fusion_torch.frontend.feature_tracker import FeatureTracker
 from mvil_fusion_torch.frontend.lidar_compensator import LidarCompensator
 from mvil_fusion_torch.io.synthetic import SyntheticTrajectory
@@ -525,3 +534,114 @@ def test_triangulation_does_not_wait(cuda):
     ok = good & win.feats.valid
     rel = ((inv - s.inv_depth).abs() / s.inv_depth)[ok]
     assert int(ok.sum()) > 40 and float(rel.max()) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# mono VIO end to end
+# ---------------------------------------------------------------------------
+
+def run_vio(device, t_end, defer=False, hypotheses=None):
+    """VIOEstimator on `device` (None: its default) over chip_smoke.py's
+    phase-11 stream up to t_end at 128 feature slots: (estimator, frames,
+    host syncs of each steady-state keyframe).  Where `hypotheses` is a
+    list, the estimator takes its essential-matrix hypotheses from it in
+    turn, or, if it is empty, appends those its generator draws."""
+    cfg = chip_smoke.sequence_config(max_features=128)
+    frames = chip_smoke.vio_sequence(chip_smoke.sequence_world(), cfg,
+                                     t_end=t_end)
+    est = VIOEstimator(cfg, device=device)
+    est.defer_readback = defer
+    if hypotheses == []:
+        def draw(valid):
+            hypotheses.append(ransac.sample_hypotheses(valid, 256,
+                                                       est.generator))
+            return hypotheses[-1]
+        est.hypothesis_source = draw
+    elif hypotheses is not None:
+        replay = iter(hypotheses)
+        est.hypothesis_source = lambda valid: next(replay)
+    syncs = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)   # a repeated stamp
+        for f in frames:
+            steady = est.status == est.NON_LINEAR
+            if est.device.type != "cuda":
+                chip_smoke.feed(est, f)
+                continue
+            _, n = chip_smoke.count_syncs(torch,
+                                          lambda: chip_smoke.feed(est, f))
+            if steady:
+                syncs.append(n)
+    est.flush()
+    return est, frames, syncs
+
+
+def test_vio_on_card_matches_cpu(cuda):
+    """Both draw the CPU generator's essential-matrix hypotheses: a CPU
+    and a CUDA generator draw different ones, and another anchor pose
+    moves the whole trajectory by centimetres."""
+    drawn = []
+    host, _, _ = run_vio("cpu", 4.5, hypotheses=drawn)
+    card, frames, _ = run_vio(None, 4.5, hypotheses=drawn)
+    assert len(drawn) >= 1
+    assert card.device.type == "cuda" and card.state.p.is_cuda
+    for est in (card, host):
+        assert est.status == est.NON_LINEAR and est.failures == 0
+        assert chip_smoke.ate_4dof(est.trajectory, frames) < 0.35
+    assert card.solve_info["init"]["l"] == host.solve_info["init"]["l"]
+    assert len(card.trajectory) == len(host.trajectory) > 30
+    gap = max(np.abs(a[1] - b[1]).max()
+              for a, b in zip(card.trajectory, host.trajectory))
+    assert gap < 2e-2, gap
+
+
+def test_vio_waits_three_times_per_keyframe(cuda):
+    est, _, syncs = run_vio(cuda, 1.45)
+    assert est.status == est.NON_LINEAR and len(syncs) == 3
+    assert syncs == [3, 3, 3]
+    assert est._tables.waits == 0
+
+
+def test_vio_deferred_readback_on_card(cuda):
+    sync, _, _ = run_vio(cuda, 1.95)
+    dfr, _, syncs = run_vio(cuda, 1.95, defer=True)
+    assert len(sync.trajectory) == len(dfr.trajectory) == 9
+    gap = max(np.abs(a[1] - b[1]).max()
+              for a, b in zip(sync.trajectory, dfr.trajectory))
+    assert gap < 1e-4, gap
+    # the two eigh; the harvest waits on the copy's event, which sync
+    # debug mode does not count
+    assert set(syncs) == {2}
+    assert dfr.solve_info["harvests"] == 9
+
+
+def test_pinned_tables_wait_for_their_copy(cuda):
+    """A copy from pinned memory reads its source when the stream gets to
+    it.  With the stream held busy, FrameTables.zero must wait for the
+    previous copy before the host refills the buffer; a refill that skips
+    the wait (the event dropped) hands the device the refilled values."""
+    tab = vio.FrameTables([("x", (1 << 20,), torch.float32)], cuda)
+
+    def cycle(skip_wait):
+        tab.zero()
+        tab["x"][:] = 1.0
+        torch.cuda._sleep(400_000_000)       # ~0.2 s of device time first
+        seen = tab.upload()["x"].clone()     # queued after the copy
+        if skip_wait:
+            tab._copied = None
+        tab.zero()
+        tab["x"][:] = 2.0
+        torch.cuda.synchronize()
+        return seen
+
+    assert bool((cycle(False) == 1.0).all())
+    assert tab.waits == 1
+    assert not bool((cycle(True) == 1.0).all())
+
+
+def test_vio_estimator_defaults_to_the_card(cuda):
+    est = VIOEstimator(SystemConfig())
+    assert est.device.type == "cuda"
+    assert est.state.p.is_cuda and est.prior.J.is_cuda
+    assert est._tables.host["obs"].is_pinned()
+    assert est._tables.dev["obs"].is_cuda

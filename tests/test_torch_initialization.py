@@ -1,0 +1,332 @@
+"""The port's visual-inertial initialization
+(``mvil_fusion_torch/estimator/initialization.py``): the seven tests of
+``tests/test_initialization.py`` on the port's functions, then each
+function against the JAX package's on the same numpy inputs (the window of
+``tests/test_initialization.py``: tests/test_ba.py's strongly excited
+trajectory, W = 7, 64 landmarks, identity extrinsics).
+
+Parity tolerances:
+* ``essential_relative_pose`` with JAX's hypotheses handed to the port:
+  the same inliers, R within 1e-4 and t within 1e-4 up to sign;
+* ``pnp`` within 1e-4 m / rad, the same ok;
+* ``global_sfm`` on 0.5 px of observation noise: poses within 1e-3 m/rad
+  of JAX's (the port triangulates in float64, JAX in fp32; measured
+  ~1e-6 here), the same triangulated points;
+* ``solve_gyroscope_bias`` within 1e-4;
+* stage A: the same ok, RIC within 1e-4 rad, per-interval bg within 1e-4,
+  td within 1e-4;
+* ``linear_alignment`` on SfM positions with 2 mm of noise: the scale
+  within 1e-3 relative, scale_sigma within 1e-2 relative, velocities
+  within 1e-3 m/s, gravity within 1e-3 m/s²;
+* stage B (an underdetermined system regularized by bounds and damping):
+  the same ok, per-frame scale within 2e-3, velocities 2e-3 m/s, acc
+  biases 5e-3, pbc 1e-3, gravity 1e-3;
+* the least-squares solve on a rank-deficient system: the minimum-norm
+  answer, as ``jnp.linalg.lstsq`` and ``np.linalg.pinv`` give it, within
+  1e-5.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import test_initialization as ref
+from mvil_fusion_tpu.estimator import initialization as jinit
+from mvil_fusion_tpu.utils import lie as jlie
+from mvil_fusion_torch.estimator import initialization as tinit
+from mvil_fusion_torch.ops import preintegration as tpre
+from mvil_fusion_torch.utils import lie as tlie
+from torch_threads import one_thread_and_warm_sqrt  # noqa: F401
+
+W = ref.W
+T = torch.as_tensor
+OBS = np.asarray(ref.FEATS.obs)
+MASK = np.asarray(ref.FEATS.mask)
+PBC_BOX = (np.full(3, -0.1, np.float32), np.full(3, 0.1, np.float32))
+
+
+def t_preints(preints):
+    return tpre.preintegrated_from_numpy(jax.tree.map(np.asarray, preints),
+                                         device="cpu")
+
+
+def rot_err(qa, qb):
+    """Largest angle (rad) between two stacks of quaternions."""
+    return float(tlie.quat_boxminus(T(np.asarray(qa, np.float32)),
+                                    T(np.asarray(qb, np.float32))
+                                    ).norm(dim=-1).max())
+
+
+def jax_hypotheses(key, valid, n_hyp=256):
+    """The slots JAX's essential_relative_pose samples with `key`."""
+    p = jnp.asarray(valid).astype(jnp.float32)
+    p = p / jnp.maximum(jnp.sum(p), 1.0)
+    return np.asarray(jax.random.choice(key, valid.shape[0],
+                                        shape=(n_hyp, 8), replace=True, p=p))
+
+
+def noisy_obs(seed=1, px=0.5):
+    rng = np.random.default_rng(seed)
+    return (OBS + rng.normal(scale=px / 460.0, size=OBS.shape)
+            ).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# tests/test_initialization.py on the port
+# ---------------------------------------------------------------------------
+
+def test_hand_eye_rotation():
+    rng = np.random.default_rng(0)
+    q_bc = tlie.quat_exp(T([0.2, -0.1, 0.3]))
+    qb = tlie.quat_exp(T(rng.normal(scale=0.4, size=(20, 3)).astype(
+        np.float32)))
+    qc = tlie.quat_mul(tlie.quat_mul(tlie.quat_conj(q_bc).expand(20, 4), qb),
+                       q_bc.expand(20, 4))
+    q_est = tinit.hand_eye_rotation(qb, qc)
+    assert rot_err(q_est, q_bc) < 1e-4
+    # the JAX package on the same pairs: the same rotation (the singular
+    # vector's sign is free; both are canonical)
+    q_j = jinit.hand_eye_rotation(jnp.asarray(qb.numpy()),
+                                  jnp.asarray(qc.numpy()))
+    assert rot_err(q_est, np.asarray(q_j)) < 1e-5
+
+
+def test_essential_relative_pose():
+    p_c0, q_c0 = ref.camera_data()
+    l, c = 0, W - 1
+    sel = MASK[:, l] & MASK[:, c]
+    res = tinit.essential_relative_pose(
+        T(OBS[:, l]), T(OBS[:, c]), T(sel),
+        generator=torch.Generator().manual_seed(0))
+    assert bool(res.ok)
+    R_l = ref._quat_to_mat(q_c0[l])
+    R_c = ref._quat_to_mat(q_c0[c])
+    R_true = R_l.T @ R_c
+    t_true = R_l.T @ (p_c0[c] - p_c0[l])
+    t_true = t_true / np.linalg.norm(t_true)
+    R_err = tlie.so3_log(T((R_true.T @ res.R.numpy()).astype(np.float32)))
+    assert float(R_err.norm()) < 0.02, R_err
+    t_est = res.t.numpy()
+    assert min(np.linalg.norm(t_est - t_true),
+               np.linalg.norm(t_est + t_true)) < 0.05
+
+
+def test_global_sfm_recovers_geometry():
+    p_c0, q_c0 = ref.camera_data()
+    l = 0
+    sel = MASK[:, l] & MASK[:, W - 1]
+    rel = tinit.essential_relative_pose(
+        T(OBS[:, l]), T(OBS[:, W - 1]), T(sel),
+        generator=torch.Generator().manual_seed(0))
+    sfm = tinit.global_sfm(OBS, MASK, l, rel.R.numpy(), rel.t.numpy(),
+                           device="cpu")
+    assert sfm.ok
+    scale_true = np.linalg.norm(p_c0[W - 1] - p_c0[l])
+    err = np.linalg.norm(sfm.p_c0_c * scale_true - p_c0, axis=1)
+    assert err.max() < 0.1 * scale_true, err
+    assert rot_err(sfm.q_c0_c, q_c0) < 0.05
+
+
+def test_solve_gyroscope_bias():
+    bg_true = np.asarray([0.01, -0.02, 0.015], np.float32)
+    _, _, preints, imask, _ = ref.build_window_problem(ref.WORLD,
+                                                       bg_true=bg_true)
+    _, q_c0 = ref.camera_data()
+    bg = tinit.solve_gyroscope_bias(T(q_c0), t_preints(preints),
+                                    T(np.asarray(imask)))
+    np.testing.assert_allclose(bg.numpy(), bg_true, atol=2e-3)
+    bg_j = jinit.solve_gyroscope_bias(jnp.asarray(q_c0), preints, imask)
+    np.testing.assert_allclose(bg.numpy(), np.asarray(bg_j), rtol=0,
+                               atol=1e-4)
+
+
+def _gyro_ends(bg_true):
+    gyr_first, gyr_last = [], []
+    for k in range(W - 1):
+        _, gyr, _, _ = ref.TRAJ.imu_sequence(ref.TIMES[k], ref.TIMES[k + 1],
+                                             200.0, bg=bg_true)
+        gyr_first.append(gyr[0])
+        gyr_last.append(gyr[-1])
+    return (np.asarray(gyr_first, np.float32),
+            np.asarray(gyr_last, np.float32))
+
+
+def test_stage_a_recovers_bias_and_ric():
+    bg_true = np.asarray([0.01, -0.02, 0.015], np.float32)
+    _, _, preints_j, _, _ = ref.build_window_problem(ref.WORLD,
+                                                     bg_true=bg_true)
+    preints = t_preints(preints_j)
+    _, q_c0 = ref.camera_data()
+    gyr_first, gyr_last = _gyro_ends(bg_true)
+    res = tinit.estimate_ric_td_bg(T(q_c0), preints, T(gyr_first),
+                                   T(gyr_last), tlie.quat_identity())
+    assert res.ok, res.cost
+    # the (bgs, td) split is underdetermined per interval: check rotation
+    # consistency through the estimated RIC instead
+    for k in range(W - 1):
+        dq_corr = tlie.quat_mul(preints.dq[k], tlie.quat_exp(
+            preints.J[k, 3:6, 12:15] @ res.bgs[k]))
+        q_rel_cam = tlie.quat_mul(tlie.quat_conj(T(q_c0[k])), T(q_c0[k + 1]))
+        q_rel_body = tlie.quat_mul(tlie.quat_mul(res.q_ric, q_rel_cam),
+                                   tlie.quat_conj(res.q_ric))
+        ang = float(tlie.quat_boxminus(q_rel_body, dq_corr).norm())
+        assert ang < 5e-3, (k, ang)
+    assert float(tlie.quat_log(res.q_ric).norm()) < 0.05
+    assert float(res.td.abs().max()) <= 0.1 + 1e-6
+
+    # the JAX package on the same inputs
+    ja = jinit.estimate_ric_td_bg(
+        jnp.asarray(q_c0), preints_j, jnp.asarray(gyr_first),
+        jnp.asarray(gyr_last), jlie.quat_identity())
+    assert ja.ok == res.ok
+    assert rot_err(res.q_ric, np.asarray(ja.q_ric)) < 1e-4
+    np.testing.assert_allclose(res.bgs.numpy(), np.asarray(ja.bgs), rtol=0,
+                               atol=1e-4)
+    np.testing.assert_allclose(res.td.numpy(), np.asarray(ja.td), rtol=0,
+                               atol=1e-4)
+
+
+def test_linear_alignment_recovers_scale_gravity_velocity():
+    p_c0, q_c0 = ref.camera_data()
+    scale_true = 2.5
+    args = (p_c0 / scale_true, q_c0)
+    res = tinit.linear_alignment(*map(T, args), t_preints(ref.PREINTS),
+                                 ref.TRAJ.g_norm, torch.zeros(3))
+    assert res.ok, res.cost
+    np.testing.assert_allclose(float(res.scale), scale_true, rtol=0.02)
+    np.testing.assert_allclose(res.g_c0.numpy(), ref.g_true_in_c0(),
+                               atol=0.1)
+    for k in range(W):
+        _, qw, vw = ref.TRAJ.state_at(ref.TIMES[k])
+        v_body = ref._quat_to_mat(qw).T @ vw
+        np.testing.assert_allclose(res.vel[k].numpy(), v_body, atol=0.05)
+
+    # the JAX package on the same inputs, with 2 mm of noise on the SfM
+    # positions: noise-free, the fit's cost (and so scale_sigma) is fp32
+    # rounding in both packages
+    noisy = (p_c0 / scale_true + np.random.default_rng(2).normal(
+        scale=2e-3, size=p_c0.shape)).astype(np.float32)
+    res = tinit.linear_alignment(T(noisy), T(q_c0), t_preints(ref.PREINTS),
+                                 ref.TRAJ.g_norm, torch.zeros(3))
+    ja = jinit.linear_alignment(jnp.asarray(noisy), jnp.asarray(q_c0),
+                                ref.PREINTS, ref.TRAJ.g_norm,
+                                jnp.zeros(3, jnp.float32))
+    assert ja.ok == res.ok and 0.002 < ja.scale_sigma / float(ja.scale)
+    assert abs(float(res.scale) - float(ja.scale)) <= 1e-3 * float(ja.scale)
+    assert abs(res.scale_sigma - ja.scale_sigma) <= 1e-2 * ja.scale_sigma
+    np.testing.assert_allclose(res.vel.numpy(), np.asarray(ja.vel), rtol=0,
+                               atol=1e-3)
+    np.testing.assert_allclose(res.g_c0.numpy(), np.asarray(ja.g_c0),
+                               rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("fix_pbc", [True, False])
+def test_stage_b_reference_parity_behavior(fix_pbc):
+    """Stage B is underdetermined (49 unknowns, 36 residuals) and gated
+    only on its final cost: a consistent (low-cost) solution with positive
+    scales and bounded biases, and the JAX package's on the same inputs."""
+    p_c0, q_c0 = ref.camera_data()
+    args = (p_c0 / 2.5, q_c0)
+    res = tinit.estimate_vel_g_s_tic(
+        *map(T, args), t_preints(ref.PREINTS), ref.TRAJ.g_norm,
+        torch.zeros(3), *map(T, PBC_BOX), fix_pbc=fix_pbc)
+    assert res.ok, res.cost
+    assert (res.scale.numpy() >= 0.0).all()
+    assert float(res.bas.abs().max()) <= 0.2 + 1e-6
+    assert np.isfinite(res.g_c0.numpy()).all()
+
+    ja = jinit.estimate_vel_g_s_tic(
+        *map(jnp.asarray, args), ref.PREINTS, ref.TRAJ.g_norm,
+        jnp.zeros(3, jnp.float32), *map(jnp.asarray, PBC_BOX),
+        fix_pbc=fix_pbc)
+    assert ja.ok == res.ok
+    for name, tol in (("scale", 2e-3), ("vel", 2e-3), ("bas", 5e-3),
+                      ("pbc", 1e-3), ("g_c0", 1e-3)):
+        np.testing.assert_allclose(getattr(res, name).numpy(),
+                                   np.asarray(getattr(ja, name)), rtol=0,
+                                   atol=tol, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# parity with the JAX package
+# ---------------------------------------------------------------------------
+
+def test_essential_relative_pose_matches_reference():
+    obs = noisy_obs()
+    l, c = 1, W - 1
+    sel = MASK[:, l] & MASK[:, c]
+    key = jax.random.PRNGKey(3)
+    rj = jinit.essential_relative_pose(key, jnp.asarray(obs[:, l]),
+                                       jnp.asarray(obs[:, c]),
+                                       jnp.asarray(sel))
+    rt = tinit.essential_relative_pose(
+        T(obs[:, l]), T(obs[:, c]), T(sel),
+        idx=T(jax_hypotheses(key, sel)))
+    assert bool(rt.ok) and bool(rj.ok)
+    np.testing.assert_array_equal(rt.inliers.numpy(), np.asarray(rj.inliers))
+    np.testing.assert_allclose(rt.R.numpy(), np.asarray(rj.R), rtol=0,
+                               atol=1e-4)
+    tj = np.asarray(rj.t)
+    assert min(np.abs(rt.t.numpy() - tj).max(),
+               np.abs(rt.t.numpy() + tj).max()) < 1e-4
+
+
+def test_pnp_matches_reference():
+    p_c0, q_c0 = ref.camera_data()
+    s = ref.S_TRUE
+    k = 3
+    # landmarks in the c0 frame from their true start-frame depths
+    R0 = ref._quat_to_mat(np.asarray(s.q[0]))
+    start = np.asarray(ref.FEATS.start)
+    depth = 1.0 / np.asarray(s.inv_depth)
+    pts = []
+    for f in range(OBS.shape[0]):
+        i = start[f]
+        xyz = np.append(OBS[f, i], 1.0) * depth[f]
+        pw = ref._quat_to_mat(np.asarray(s.q[i])) @ xyz + np.asarray(s.p[i])
+        pts.append(R0.T @ (pw - np.asarray(s.p[0])))
+    pts = np.asarray(pts, np.float32)
+    obs = noisy_obs()[:, k]
+    sel = MASK[:, k] & np.asarray(ref.FEATS.valid)
+    # start from the neighbour's pose, as the SfM chain does
+    p0, q0 = p_c0[k - 1], q_c0[k - 1]
+    pj, qj, okj = jinit.pnp(*map(jnp.asarray, (pts, obs, sel, p0, q0)))
+    pt, qt, okt = tinit.pnp(*map(T, (pts, obs, sel, p0, q0)))
+    assert bool(okt) and bool(okj)
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=0, atol=1e-4)
+    assert rot_err(qt, np.asarray(qj)) < 1e-4
+    assert np.linalg.norm(pt.numpy() - p_c0[k]) < 0.01
+
+
+def test_global_sfm_matches_reference():
+    obs = noisy_obs()
+    l = 1
+    sel = MASK[:, l] & MASK[:, W - 1]
+    rel = jinit.essential_relative_pose(
+        jax.random.PRNGKey(3), jnp.asarray(obs[:, l]),
+        jnp.asarray(obs[:, W - 1]), jnp.asarray(sel))
+    R, t = np.asarray(rel.R), np.asarray(rel.t)
+    sj = jinit.global_sfm(obs, MASK, l, R, t)
+    st_ = tinit.global_sfm(obs, MASK, l, R, t, device="cpu")
+    assert sj.ok and st_.ok
+    np.testing.assert_array_equal(st_.pts_ok, sj.pts_ok)
+    np.testing.assert_allclose(st_.p_c0_c, sj.p_c0_c, rtol=0, atol=1e-3)
+    assert rot_err(st_.q_c0_c, sj.q_c0_c) < 1e-3
+
+
+def test_lstsq_takes_the_minimum_norm_answer_of_a_rank_deficient_system():
+    """Two equal columns and a zero one: rank 2 of 4.  The QR-based
+    torch.linalg.lstsq of a card assumes full rank; the port's SVD solve
+    answers as jnp.linalg.lstsq does."""
+    rng = np.random.default_rng(4)
+    a = rng.normal(size=(12, 2)).astype(np.float32)
+    A = np.concatenate([a, a[:, :1], np.zeros((12, 1), np.float32)], axis=1)
+    b = rng.normal(size=12).astype(np.float32)
+    x = tinit.lstsq(T(A), T(b)).numpy()
+    x_pinv = np.linalg.pinv(A.astype(np.float64)) @ b
+    np.testing.assert_allclose(x, x_pinv, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(x, np.asarray(jnp.linalg.lstsq(
+        jnp.asarray(A), jnp.asarray(b))[0]), rtol=0, atol=1e-5)
+    assert x[3] == 0.0 and abs(x[0] - x[2]) < 1e-6
