@@ -130,18 +130,40 @@ class EstimatorConfig:
 
 @dataclass(frozen=True)
 class LidarConfig:
-    """LiDAR front end and VGICP registration (reference yaml:120-140,
-    lidar_compensator)."""
+    """LiDAR front end + scan-to-scan constraint (reference yaml:120-140,
+    vils_estimator/src/estimator.cpp:122-504, lidar_compensator)."""
 
+    n_rings: int = 16
     scan_period: float = 0.1
     # infer sweep-start azimuth from scan history instead of assuming 0
     # (reference lidar_compensator infer_start_ori_ param)
     infer_start_ori: bool = False
     min_distance: float = 0.5
     max_distance: float = 70.0
+    leaf_size: float = 0.3        # voxel downsample for scan-to-scan
     vgicp_resolution: float = 0.5
     max_corr_dist: float = 0.8
     vgicp_iters: int = 12
+    # spatial-hash table sizes of the per-sweep Gaussian map and of the
+    # downsamples: a 14k-point sweep at 0.5 m leaves occupies ~5-10k
+    # voxels, so 2^16 buckets keep the load factor at or below 0.15
+    vgicp_table_size: int = 1 << 16
+    downsample_table_size: int = 1 << 16
+    # LiDAR-IMU extrinsic (ground truth init; reference yaml gt_rli/gt_tli)
+    rlb: Tuple[float, ...] = (
+        -0.0320631, 0.000946093, -0.999485,
+        -0.999482, -0.00274554, 0.0320604,
+        -0.0027138, 0.999996, 0.00103363,
+    )
+    tlb: Tuple[float, ...] = (0.2, -0.005, -0.1)
+    use_estimated_extrinsic: bool = False   # reference #define USE_ES
+    plb_upper: Tuple[float, ...] = (0.15, 0.03, -0.10)
+    plb_lower: Tuple[float, ...] = (0.08, -0.03, -0.17)
+    # constraint-mode classification thresholds
+    # (reference estimator.cpp:324-436)
+    fitness_fail: float = 1.0
+    zero_velocity_trans: float = 0.02
+    pure_rotation_yaw: float = 0.5
 
 
 @dataclass(frozen=True)

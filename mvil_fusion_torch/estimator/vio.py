@@ -380,7 +380,7 @@ class VIOEstimator:
         # online extrinsic/td stream — the reference's ex_results.txt
         # (estimator_node.cpp:312-336 pubEXresults)
         self.ex_results: list[tuple] = []
-        # LiDAR coupling: slice 4 of the port (LidarFrontend)
+        # LiDAR coupling (created by enable_lidar to keep mono VIO light)
         self.lidar = None
         self.lps_list: list[tuple] = []   # (t, p_w, q_w) localizer feedback
         self._lps_fresh = False   # reference LPS_call: arm LPS rows for
@@ -393,18 +393,25 @@ class VIOEstimator:
     # ------------------------------------------------------------- LiDAR
 
     def enable_lidar(self):
-        raise NotImplementedError(
-            "the port's LiDAR front end (LidarFrontend, depth registration "
-            "and VIOEstimator.enable_lidar/process_lidar) is slice 4 of the "
-            "port and not yet ported; run mono VIO without LiDAR")
+        """Couple the LiDAR front end (`LidarFrontend`, on the estimator's
+        device): sweeps through `process_lidar`, their ICP and
+        zero-velocity rows into every solve, the LPS rows armed."""
+        # imported here: lidar_frontend imports this module
+        from mvil_fusion_torch.estimator.lidar_frontend import LidarFrontend
+        if self.lidar is None:
+            self.lidar = LidarFrontend(self.cfg, device=self.device)
 
-    def process_lidar(self, t_start: float, pts: np.ndarray,
-                      rel_time: np.ndarray, mask: np.ndarray):
+    def process_lidar(self, t_start: float, pts, rel_time, mask):
         """One compensated LiDAR sweep (reference process_lidar thread,
-        estimator_node.cpp:338-376).  Without a LiDAR front end (none can
-        be enabled before slice 4) the reference returns None, and so does
-        this."""
-        return None
+        estimator_node.cpp:338-376 → Estimator::processLidar).
+
+        Returns the deskewed cloud + interpolated lidar pose for the mapping
+        back end and the depth-register feedback, or None."""
+        if self.status != self.NON_LINEAR or self.lidar is None:
+            return None
+        n_t = min(len(self.times), self.W)
+        return self.lidar.process_sweep(t_start, pts, rel_time, mask,
+                                        self.times[:n_t], self.state)
 
     def process_lps(self, t: float, p_w: np.ndarray, q_w: np.ndarray):
         """Global-mapping localizer feedback ('LPS', reference
@@ -413,6 +420,16 @@ class VIOEstimator:
         without one the message is dropped, as in the reference."""
         if self.lidar is None:
             return
+        rlb, tlb = self.lidar.rlb, self.lidar.tlb
+        R = lie.quat_to_mat(torch.as_tensor(np.asarray(q_w,
+                                                       np.float32))).numpy()
+        p_b = R @ tlb + np.asarray(p_w)
+        q_b = lie.mat_to_quat(torch.as_tensor(
+            (R @ rlb).astype(np.float32))).numpy()
+        self.lps_list.append((t, p_b.astype(np.float32), q_b))
+        while len(self.lps_list) > lfac.MAX_LPS:
+            self.lps_list.pop(0)
+        self._lps_fresh = True
 
     def _fill_lps_tables(self, ids, alpha, qm, act):
         """Write the LPS rotation-constraint table into the given arrays.
@@ -956,9 +973,16 @@ class VIOEstimator:
             need_depth=tab["need_depth"])
         self._fill_imu_tables(tab["accs"], tab["gyrs"], tab["dts"],
                               tab["imu_masks"])
-        # the ICP/LPS rows and zero velocity come from the LiDAR front end
-        # (slice 4); without one they stay inactive
-        tab["lps_qm"][:, 0] = 1.0
+        if self.lidar is not None:
+            if not self.lidar.defer_pack:
+                self.lidar._harvest_pack()
+            tab["zero_vel"][0] = self.lidar.fill_constraint_tables(
+                self.times[:W], tab["icp_ids"], tab["icp_ai"], tab["icp_aj"],
+                tab["icp_tp"], tab["icp_w"], tab["icp_act"])
+            self._fill_lps_tables(tab["lps_ids"], tab["lps_alpha"],
+                                  tab["lps_qm"], tab["lps_act"])
+        else:
+            tab["lps_qm"][:, 0] = 1.0
 
         prior_valid_host = bool(self._prior_valid)
         t0_solve = time.perf_counter()
@@ -1141,9 +1165,12 @@ class VIOEstimator:
         if td is None:
             td = float(self.state.td)
         vi_ypr = _np_quat_to_ypr(np.asarray(qic, np.float64))
-        # the LiDAR-IMU extrinsic comes with the LiDAR front end (slice 4)
-        li_ypr = np.zeros(3, np.float32)
-        li_t = np.zeros(3, np.float32)
+        if self.lidar is not None:
+            li_ypr = _np_mat_to_ypr(np.asarray(self.lidar.rlb, np.float64))
+            li_t = np.asarray(self.lidar.tlb)
+        else:
+            li_ypr = np.zeros(3, np.float32)
+            li_t = np.zeros(3, np.float32)
         self.ex_results.append((t, vi_ypr, np.asarray(tic), li_ypr, li_t,
                                 td))
 
@@ -1152,16 +1179,30 @@ class VIOEstimator:
         fresh estimator that keeps the extrinsics, the failure count, the
         trajectory, ex_results and diagnostics (the reference's
         EX_RESULT_PATH stream persists across clearState), its device, its
-        readback mode and its hypothesis source."""
+        readback mode and its hypothesis source.
+
+        The reference's clearState keeps the node's LiDAR path alive (only
+        window state is wiped): a new LiDAR front end takes over the old
+        one's extrinsic, calibration flag, readback mode and mode
+        histogram."""
         failures = self.failures + 1
         keep = (self.trajectory, self.ex_results, self.solve_info,
                 self.defer_readback, self.hypothesis_source)
         keep_qic, keep_tic = self.state.qic, self.state.tic
+        lidar_prev = self.lidar
         self.__init__(self.cfg, self.device, self._generator_arg)
         self.state = self.state._replace(qic=keep_qic, tic=keep_tic)
         self.failures = failures
         (self.trajectory, self.ex_results, self.solve_info,
          self.defer_readback, self.hypothesis_source) = keep
+        if lidar_prev is not None:
+            self.enable_lidar()
+            self.lidar.rlb = lidar_prev.rlb
+            self.lidar.tlb = lidar_prev.tlb
+            self.lidar.q_lb = lidar_prev.q_lb
+            self.lidar.calibrated = lidar_prev.calibrated
+            self.lidar.defer_pack = lidar_prev.defer_pack
+            self.lidar.mode_counts = lidar_prev.mode_counts
 
     def _slide(self, old: bool):
         W = self.W

@@ -7,6 +7,7 @@ itself: without a card, asking for the default raises.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -21,3 +22,12 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
             "runs on the card by default; pass device=\"cpu\" to run on "
             "the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def upload(x, device: torch.device, dtype=torch.float32) -> torch.Tensor:
+    """A host array (or a tensor) as `dtype` on `device`, without waiting
+    for the stream: a blocking copy of a host value to a card waits for
+    it."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.ascontiguousarray(x))
+    return x.to(device, dtype, non_blocking=True)

@@ -8,6 +8,7 @@
     python3 profile_slice.py --frontend
     python3 profile_slice.py --frame-step
     python3 profile_slice.py --vio
+    python3 profile_slice.py --vil
     python3 profile_slice.py --count-ops
 
 Drives the drift run of chip_smoke.py (40 sweeps of 16 × 900 points at the
@@ -125,11 +126,29 @@ slots, sync readback):
    uses loaded by then) and with the estimator on the host's CPU: what
    moving the init chain off the card would give.
 
+With --vil it profiles VIL odometry and the whole system instead, on the
+streams of chip_smoke.py's phases 12 and 13 (sweeps of 16 × 900 points at
+10 Hz):
+
+1. sweep: a VIOEstimator with its LiDAR front end on cuda:0, fed until
+   10 sweeps are classified, then 8 sweeps through process_lidar, each
+   part timed on the host clock with the device drained at its end: the
+   deskew, the two downsamples, the Gaussian map's build, vgicp_align and
+   the pack's readback; the rest is the window-pose interpolation, the
+   lidar-frame poses and the pack's assembly;
+2. profile: one sweep whole, then each part of the next one under its
+   own torch.profiler: kernel launches, device ms, host syncs;
+3. system: VilSystem() on phase 13's stream, the wall of its
+   sensor-second 2.5-3.5 s split by stage (keyframes, process_lidar,
+   process_full, add_submap, depth lookups and clouds, compensator; host
+   clock, device drained after each call).
+
 With --count-ops it runs on the CPU and needs no card: the aten operations
 (views left out) that one frame step of that window dispatches, at iters 8
 and 4 with either marginalization, and each part's; then those that one
 steady-state keyframe of the estimator dispatches on phase 11's stream,
-frame_step apart from the host class's own, and one init attempt's.
+frame_step apart from the host class's own, and one init attempt's; then
+those of one classified sweep of phase 12's stream, by part.
 """
 
 from __future__ import annotations
@@ -142,6 +161,8 @@ import statistics
 import sys
 import time
 import warnings
+
+import numpy as np
 
 import chip_smoke as smoke
 
@@ -857,6 +878,204 @@ def vio_profile(torch, card) -> None:
                   flush=True)
 
 
+SWEEP_PARTS = (("deskew", "dsk", "deskew_to_end"),
+               ("downsamples", "voxel", "voxel_downsample"),
+               ("map build", "voxel", "build_gaussian_voxel_map"),
+               ("vgicp_align", "vgicp", "vgicp_align"),
+               ("readback", None, "read_host_pack"))
+SYSTEM_STAGES = (("keyframes", "estimator", "process_features"),
+                 ("process_lidar", "estimator", "process_lidar"),
+                 ("process_full", "local_mapper", "process_full"),
+                 ("add_submap", "global_mapper", "add_submap"),
+                 ("depth lookups", "depth_register", "get_depth"),
+                 ("depth clouds", "depth_register", "add_cloud"),
+                 ("compensator", "compensator", "process"))
+
+
+def instrument_sweep(around):
+    """Route each part of LidarFrontend.process_sweep (SWEEP_PARTS: the
+    functions lidar_frontend.py calls) through around(part, fn, *args);
+    the interpolation, lidar-frame poses and the pack's assembly are what
+    is left.  Returns a function that undoes it."""
+    from mvil_fusion_torch.estimator import lidar_frontend as lf
+    saved = []
+    for part, mod, name in SWEEP_PARTS:
+        owner = lf if mod is None else getattr(lf, mod)
+        fn = getattr(owner, name)
+        saved.append((owner, name, fn))
+        setattr(owner, name, lambda *a, part=part, fn=fn, **k: around(
+            part, fn, *a, **k))
+
+    def undo():
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    return undo
+
+
+class _Done(Exception):
+    """Stops a stream once what was to be measured has been."""
+
+
+def vil_stream(cfg, device, around):
+    """A VIL estimator on `device` over phase 12's stream, each sweep's
+    process_lidar run through around(k, fn), where k counts the sweeps
+    classified before it; around may raise _Done to stop the stream."""
+    from mvil_fusion_torch.estimator.vio import VIOEstimator
+    frames, sweeps = smoke.vil_sequence(smoke.sequence_world(
+        smoke.VIL_DURATION), cfg)
+    est = VIOEstimator(cfg, device=device)
+    est.enable_lidar()
+    done = [0]
+
+    def on_sweep(s):
+        out = around(done[0], lambda: est.process_lidar(
+            s["t_start"], s["pts"], s["rel_time"], s["mask"]))
+        done[0] += out is not None and bool(out["mode"])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        try:
+            smoke.run_stream(est, frames, sweeps, on_sweep)
+        except _Done:
+            pass
+    return est
+
+
+def vil_profile(torch, card) -> None:
+    """--vil: one sweep of VIL odometry by part, and one sensor-second of
+    VilSystem by stage."""
+    from mvil_fusion_torch.pipeline.system import VilSystem
+    # 1. wall by part over 8 sweeps from the 11th classified one on,
+    # device drained after each part; 2. one sweep whole and the next by
+    # part under torch.profiler
+    spent = collections.defaultdict(list)
+    prof = collections.defaultdict(lambda: [0, 0.0, 0])
+    walls, whole = [], []
+
+    def timed(part, fn, *a, **k):
+        t = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        spent[part].append(1e3 * (time.perf_counter() - t))
+        return out
+
+    def profiled(part, fn, *a, **k):
+        box = []
+        launches, dev_ms, _ = smoke.profile_device(torch, lambda: box.append(
+            smoke.count_syncs(torch, lambda: fn(*a, **k))))
+        result, syncs = box[0]
+        prof[part][0] += launches
+        prof[part][1] += dev_ms
+        prof[part][2] += syncs
+        return result
+
+    def classified(out):
+        return out is not None and bool(out["mode"])
+
+    def around(k, fn):
+        if 10 <= k < 18:
+            mark = {p: len(v) for p, v in spent.items()}
+            undo = instrument_sweep(timed)
+            try:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn()
+                wall = 1e3 * (time.perf_counter() - t)
+            finally:
+                undo()
+            if classified(out):
+                walls.append(wall)
+            else:             # not bracketed: the parts never ran
+                for p, n in mark.items():
+                    del spent[p][n:]
+            return out
+        if k == 18 and not whole:
+            box = []
+            res = smoke.profile_device(torch, lambda: box.append(
+                smoke.count_syncs(torch, fn)))
+            if classified(box[0][0]):
+                whole.append(res[:2] + (box[0][1],))
+            return box[0][0]
+        if k >= 19 and not prof:
+            undo = instrument_sweep(profiled)
+            try:
+                out = fn()
+            finally:
+                undo()
+            if not classified(out):
+                prof.clear()
+            return out
+        if k >= 19:
+            raise _Done
+        return fn()
+    vil_stream(smoke.vil_config(), "cuda:0", around)
+    per = {p: statistics.median(v) * len(v) / len(walls)
+           for p, v in spent.items()}
+    wall = statistics.median(walls)
+    print(f"sweep: {len(walls)} classified sweeps of "
+          f"16x{smoke.VIL_AZIMUTH} through process_lidar, ms per sweep "
+          f"(median, host clock, device drained after each part): whole "
+          f"{wall:.2f}; " + ", ".join(f"{p} {ms:.2f}" for p, ms in
+                                      per.items())
+          + f", interpolation, poses and the pack "
+          f"{wall - sum(per.values()):.2f} [{card}]", flush=True)
+    launches, dev_ms, syncs = whole[0]
+    print(f"profile: one sweep: {launches} kernel launches, {dev_ms:.3f} ms "
+          f"of device time, busy share {dev_ms / wall:.4f} of the median "
+          f"sweep, {syncs} host syncs [{card}]", flush=True)
+    for part, (n, ms, sy) in prof.items():
+        print(f"profile:   {part:<12} {n:6d} launches, {ms:8.3f} ms on the "
+              f"device, {sy} host syncs", flush=True)
+
+    # 3. one sensor-second of the whole system, by stage
+    cfg = smoke.system_config()
+    frames, sweeps = smoke.vil_sequence(
+        smoke.sequence_world(smoke.SYS_DURATION), cfg, smoke.SYS_T_END,
+        lidar_times=np.arange(*smoke.SYS_LIDAR, 1.0 / smoke.VIL_HZ))
+    sys_ = VilSystem(cfg)
+    acc = collections.Counter()
+    window = [False]
+    for stage, owner, name in SYSTEM_STAGES:
+        obj = getattr(sys_, owner)
+        fn = getattr(obj, name)
+
+        def wrapped(*a, stage=stage, fn=fn, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            if window[0]:
+                acc[stage] += time.perf_counter() - t
+            return out
+        setattr(obj, name, wrapped)
+    t_on = (2.5, 3.5)
+    wall, n_frame = [0.0], [0]
+
+    def timed_call(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if window[0]:
+            wall[0] += time.perf_counter() - t
+
+    def on_frame(fn):
+        window[0] = t_on[0] <= frames[n_frame[0]]["t"] < t_on[1]
+        n_frame[0] += 1
+        timed_call(fn)
+
+    def on_sweep(s):
+        timed_call(lambda: sys_.process_lidar(s["t_start"], s["pts"],
+                                              s["mask"]))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        smoke.run_stream(sys_, frames, sweeps, on_sweep, on_frame)
+    print(f"system: the sensor-second {t_on[0]}-{t_on[1]} s of phase 13's "
+          f"stream: {wall[0]:.2f} s of wall ("
+          f"{(t_on[1] - t_on[0]) / wall[0]:.4f} sensor-seconds per "
+          f"wall-second); by stage: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in acc.items())
+          + f", the rest {wall[0] - sum(acc.values()):.3f} s [{card}]",
+          flush=True)
+
+
 def count_ops() -> None:
     """--count-ops: the aten operations (views left out) that one frame
     step and each of its parts dispatch, on the CPU, with no card: what
@@ -919,6 +1138,37 @@ def count_ops() -> None:
                   f"{n} in all, frame_step {sum(inner)}, the rest "
                   f"{n - sum(inner)}", flush=True)
 
+    # a classified sweep of VIL odometry on phase 12's stream, by part
+    parts, total = collections.Counter(), []
+
+    def counted(part, fn, *a, **k):
+        with Count() as c:
+            out = fn(*a, **k)
+        parts[part] += c.n
+        return out
+
+    def around(k, fn):
+        if k < 3:
+            return fn()
+        parts.clear()
+        undo = instrument_sweep(counted)
+        try:
+            with Count() as c:
+                out = fn()
+        finally:
+            undo()
+        if out is not None and out["mode"]:
+            total.append(c.n)
+            raise _Done
+        return out
+    vil_stream(smoke.vil_config(), "cpu", around)
+    n = total[0]
+    print(f"ops: the 4th classified sweep of 16x{smoke.VIL_AZIMUTH} through "
+          f"process_lidar: {n} in all; " + ", ".join(
+              f"{k} {v}" for k, v in parts.items())
+          + f", interpolation, poses and the pack {n - sum(parts.values())}",
+          flush=True)
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace-dir", default="build/profile",
@@ -943,6 +1193,9 @@ def main() -> int:
     ap.add_argument("--vio", action="store_true",
                     help="profile mono VIO end to end by part of a keyframe "
                          "and stage of an init attempt, and stop")
+    ap.add_argument("--vil", action="store_true",
+                    help="profile a sweep of VIL odometry by part and a "
+                         "sensor-second of VilSystem by stage, and stop")
     ap.add_argument("--count-ops", action="store_true",
                     help="count the operations a frame step dispatches, on "
                          "the CPU (no card needed), and stop")
@@ -969,6 +1222,9 @@ def main() -> int:
         return 0
     if args.vio:
         vio_profile(torch, card)
+        return 0
+    if args.vil:
+        vil_profile(torch, card)
         return 0
     if args.frontend:
         frontend_profile(torch, card)

@@ -71,8 +71,11 @@ TIC = np.asarray([0.05, -0.02, 0.01])
 
 
 # what the port leaves out of each class: the JAX pipeline's own, and
-# estimator fields that neither package reads
-LEFT_OUT = {"CameraConfig": {"border", "upload_workers"},
+# estimator and LiDAR fields that neither package reads
+LEFT_OUT = {"LidarConfig": {"transformation_epsilon", "max_points",
+                            "max_voxels", "drift_trans", "max_constraints",
+                            "add_lidar2cam", "add_lidar2lidar"},
+            "CameraConfig": {"border", "upload_workers"},
             "TrackerConfig": {"border", "upload_workers"},
             "ImuConfig": {"border", "upload_workers"},
             "EstimatorConfig": {"angle_vi", "max_obs_per_feature",
@@ -81,7 +84,8 @@ LEFT_OUT = {"CameraConfig": {"border", "upload_workers"},
 
 
 @pytest.mark.parametrize("cls", ["CameraConfig", "TrackerConfig",
-                                 "ImuConfig", "EstimatorConfig"])
+                                 "ImuConfig", "EstimatorConfig",
+                                 "LidarConfig"])
 def test_front_end_config_classes_match_reference(cls):
     ours, ref = getattr(tconfig, cls)(), getattr(jconfig, cls)()
     ref_fields = {f.name for f in dataclasses.fields(ref)}

@@ -387,13 +387,22 @@ def test_lps_table_matches_reference():
 
 
 def test_lidar_waits_for_slice_four():
+    """Without a LiDAR front end a sweep gives None and a localizer message
+    is dropped; enable_lidar (slice 4) builds one, once, on the
+    estimator's device, and sweeps still wait for NON_LINEAR."""
     est = tvio.VIOEstimator(SystemConfig(), device=CPU)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        est.enable_lidar()
     assert est.process_lidar(0.0, np.zeros((4, 3)), np.zeros(4),
                              np.ones(4, bool)) is None
     est.process_lps(0.0, np.zeros(3), np.array([1.0, 0, 0, 0]))
     assert est.lps_list == []
+    est.enable_lidar()
+    first = est.lidar
+    est.enable_lidar()
+    assert est.lidar is first and first.device.type == "cpu"
+    assert est.process_lidar(0.0, np.zeros((4, 3)), np.zeros(4),
+                             np.ones(4, bool)) is None
+    est.process_lps(0.0, np.zeros(3), np.array([1.0, 0, 0, 0]))
+    assert len(est.lps_list) == 1
 
 
 def test_default_device_needs_a_card():
