@@ -97,9 +97,10 @@ Phases, one line each (any failure raises and the script exits non-zero):
    the new prior's JᵀJ 1e-3 and its cost change over 1 cm / 0.01 rad
    steps 1e-3; (f) 3 host waits per step and readback (the two eigh of
    the marginalization, the readback).  Prints ms per frame_step (median
-   of 20 after 3 warm-ups; host clock, device drained) at iters 8 and 4
+   of 10 after 2 warm-ups, a depth cut that keeps the script within its
+   time; host clock, device drained) at iters 8 and 4
    with either marginalization, kernel launches, device ms and busy share
-   per step; the same at F = 1024 (13000 landmarks; 10 after 2), timed
+   per step; the same at F = 1024 (13000 landmarks; 3 after 1), timed
    but not gated.
 
 11. vio: mono VIO end to end on cuda:0: VIOEstimator() (its default
@@ -117,7 +118,10 @@ Phases, one line each (any failure raises and the script exits non-zero):
    0.015 of the truth; in sync mode exactly 3 host waits per steady-state
    keyframe (the two eigh and the readback; the host class adds none);
    the deferred trajectory within 1e-4 m of the sync one (the card's
-   float atomics need not sum in the same order twice).  Prints ms per init attempt
+   float atomics need not sum in the same order twice).  The deferred run
+   takes the first 35 frames (to 3.9 s; more than 20 poses, no bias
+   gate), to keep the script within its time, and the sync run is
+   checkpointed before frame 30 for phase 14.  Prints ms per init attempt
    by stage, the chosen anchor l and path, solve_block_s per keyframe
    (median, max), host bookkeeping per keyframe outside frame_step, kernel
    launches and device ms of one keyframe, and the share of deferred packs
@@ -149,7 +153,10 @@ Phases, one line each (any failure raises and the script exits non-zero):
    (the deferred run classifies a sweep at the next sweep, the
    reference's relaxation, and each run's voxel maps are summed by float
    atomics), the same number of classified sweeps in both runs, modes 0,
-   1, 4 and 5 as often and a mode-3 record in both (a sweep near the
+   1, 4 and 5 as often and a mode-3 record in both; the deferred run
+   takes the first 40 frames (to 4.4 s, the kick included;
+   more than 25 poses) and the sweeps among them, and is held to the sync
+   run over those (a sweep near the
    0.1 m gate goes either way).  Then the stationary two-sweep case of
    tests/test_vil_e2e.py at full size (last mode 4), lidar_align on
    tests/test_li_calibration.py's 40 pairs (ok, mean translation residual
@@ -162,14 +169,44 @@ Phases, one line each (any failure raises and the script exits non-zero):
    get_depth;
 13. system: VilSystem() on cuda:0 (use_tracker=False, mapping on) over
    tests/test_full_system.py's stream (its trajectory and world, frames
-   0.5 to 5.2 s, sweeps from 1.35 to 4.8 s, here at 10 Hz and full size,
-   submaps every 1.0 m or 8 sweeps, 8 VGICP iterations, the identity
-   extrinsic, 256 feature slots).  Gates: NON_LINEAR, 0 failures, more
+   0.5 to 4.2 s, sweeps from 1.35 to 4.0 s, here at 10 Hz and full size:
+   the test runs to 5.2 s, a depth cut that keeps the script within its
+   time; submaps every 1.0 m or 8 sweeps, 8 VGICP iterations, the
+   identity extrinsic, 256 feature slots).  Gates: NON_LINEAR, 0 failures, more
    than 25 frontend, 5 midend and 0 backend poses, a cloud in the depth
    register, ATE below 0.3 m, the four result files in the reference's
    format, exactly 6 k-NN launches per mapped sweep.  Prints
    sensor-seconds per wall-second, the wall by stage and the features
-   that got LiDAR depth.
+   that got LiDAR depth.  Its sweeps go in as a bag carries them
+   (bag_sweep: the points without a return at the origin, no mask), so
+   that phase 14 can hold the pipeline to this run.
+14. pipeline: the offline runner (run.main) on a fixture bag that the
+   port's record_fixture_bag records into build/phase14/ (6.0 s: 200 Hz
+   IMU, 640×480 mono8 images at 30 Hz, the reference's 16-ring sweeps of
+   900 azimuth steps at 10 Hz, lz4 chunks, seed 0, the truth as TUM) with
+   fixture_config() unchanged as its --config JSON (150 features in 256
+   slots, tracker and mapping on, enforce_budget off): a synchronous run
+   (--golden --save-map) and a threaded one (--golden --threaded: the
+   three stages on three CUDA streams, the main path).  Gates, those of
+   tests/test_offline_runner.py: 0 failures, > 25 frontend and ≥ 3 midend
+   poses, frontend ATE below 0.3 m (sync) and 0.7 m (threaded), midend and
+   backend ATE below max(2 × the stage before, 0.35 m), Frontend.txt,
+   Midend.txt and ex_results.txt written with 14 columns a row; sync:
+   Map.npz and Map.pcd with > 100 points; threaded: no stage error, no
+   stage thread alive after stop, 6 k-NN launches per mapped sweep.  Then
+   the stream hand-offs: phase 13's stream through the deterministic
+   pipeline (run_pipeline_stream): the same keyframe, classified, mapped
+   and submap counts as phase 13's run, and the pipeline's frontend
+   trajectory within 1e-4 m of phase 13's up to the first solve with an
+   ICP or LPS row in either, within 5e-2 m over all (those rows come from
+   registrations on voxel maps summed by float atomics: two synchronous
+   runs on an H100 lay 1.5–18 mm apart after them, and to the bit
+   before).  Then checkpoint/resume: phase 11's sync run, saved before
+   frame CKPT_AT, restored into a fresh VIOEstimator on the card and
+   continued: the same number of poses, within 1e-4 m.  Prints each
+   run's wall and sensor-seconds per wall-second, the stages' busy
+   seconds and processed counts, the sheds, images and keyframes, the
+   k-NN launches and the card's peak memory.
 
 The second-to-last line is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}.  Neither JAX nor the JAX package is
@@ -1025,8 +1062,8 @@ VIO_T0 = 1.0
 VIO_DT = 0.1               # keyframes 0.1 s apart, 21 samples at 200 Hz
 VIO_LANDMARKS = {256: 3000, 1024: 13000}   # ≥ 200 of 256 slots filled
 VIO_NOISE_PX = 0.5         # observation noise, as tests/test_torch_frame_step
-STEP_REPS = 20
-STEP_WARMUP = 3
+STEP_REPS = 10
+STEP_WARMUP = 2
 
 
 def vio_world(n_landmarks):
@@ -1399,7 +1436,7 @@ def phase_window(torch, card):
             seed=3)
         args = wt.step_args(lidar=True)
         ms = {}
-        reps, warmup = (STEP_REPS, STEP_WARMUP) if n_feat == F else (10, 2)
+        reps, warmup = (STEP_REPS, STEP_WARMUP) if n_feat == F else (3, 1)
         for iters in (8, 4):
             for marg_old in (True, False):
                 ms[iters, marg_old] = time_steps(
@@ -1424,6 +1461,8 @@ SEQ_T0 = 0.5
 SEQ_T_END = 6.0            # 55 frames at 10 Hz
 SEQ_BA = (0.05, -0.03, 0.08)
 SEQ_BG = (0.01, -0.015, 0.02)
+CKPT_AT = 42               # phase 11's sync run is checkpointed here
+DEFER_FRAMES = 35          # phase 11's deferred run: frames 0.5 to 3.9 s
 
 
 def sequence_world(duration=8.0):
@@ -1518,21 +1557,26 @@ def ate_4dof(trajectory, frames):
     return float(np.sqrt((err ** 2).mean()))
 
 
-def run_vio(torch, frames, cfg, defer, profile_at=None):
+def run_vio(torch, frames, cfg, defer, profile_at=None, save=None):
     """The port's estimator on the card (its default device) over `frames`,
     frame by frame through process_imu/process_features: (estimator, one
     record per frame: its wall ms, host syncs as torch.cuda's sync debug
     mode counts them, whether it ran a steady-state solve and that solve's
     solve_block_s).  In sync mode the device is drained before each frame;
     frame `profile_at` runs under torch.profiler instead and its record
-    holds (kernel launches, device ms)."""
+    holds (kernel launches, device ms).  With `save` = (frame index, path)
+    the estimator is checkpointed (utils/checkpoint.save_system) before
+    that frame."""
     from mvil_fusion_torch.estimator.vio import VIOEstimator
+    from mvil_fusion_torch.utils import checkpoint
     est = VIOEstimator(cfg)
     check(est.device.type == "cuda" and est.state.p.is_cuda,
           "VIOEstimator() is not on the card")
     est.defer_readback = defer
     recs = []
     for i, f in enumerate(frames):
+        if save is not None and i == save[0]:
+            checkpoint.save_system(est, save[1])
         steady = est.status == est.NON_LINEAR
         solves = est._solves
         if i == profile_at:
@@ -1554,30 +1598,39 @@ def run_vio(torch, frames, cfg, defer, profile_at=None):
     return est, recs
 
 
-def vio_gates(est, frames, what):
-    """The gates of one phase-11 run: (its ATE, its bg error)."""
+def vio_gates(est, frames, what, min_poses=40):
+    """The gates of one phase-11 run: (its ATE, its bg error).  A run cut
+    short (min_poses below 40) is not held to the bias, which the full
+    run holds."""
     check(est.status == est.NON_LINEAR, f"{what}: not initialized")
     check(est.failures == 0, f"{what}: {est.failures} failures")
-    check(len(est.trajectory) > 40,
-          f"{what}: {len(est.trajectory)} poses, want > 40")
+    check(len(est.trajectory) > min_poses,
+          f"{what}: {len(est.trajectory)} poses, want > {min_poses}")
     traj = np.asarray([p for _, p, _, _ in est.trajectory])
     check(bool(np.isfinite(traj).all()), f"{what}: poses not finite")
     ate = ate_4dof(est.trajectory, frames)
     bg = est.state.bg[-1].cpu().numpy()
     bg_err = float(np.abs(bg - np.asarray(SEQ_BG)).max())
     check(ate < 0.35, f"{what}: ATE {ate} m")
-    check(bg_err < 0.015, f"{what}: bg {bg} against {SEQ_BG}")
+    check(bg_err < 0.015 or min_poses < 40,
+          f"{what}: bg {bg} against {SEQ_BG}")
     return ate, bg_err
 
 
 def phase_vio(torch, card):
-    """Mono VIO end to end on the card; see the module docstring."""
+    """Mono VIO end to end on the card; see the module docstring.  Returns
+    what phase 14's checkpoint check resumes from: (the configuration, the
+    frames, the frame the sync run was saved before, the checkpoint's path,
+    the sync run's estimator)."""
+    import os
     from mvil_fusion_torch.ops import knn_topk as K
     cfg = sequence_config()
     frames = vio_sequence(sequence_world(), cfg)
     K.knn_topk_cuda.launches = 0
     profile_at = len(frames) - 10
-    sync, recs = run_vio(torch, frames, cfg, False, profile_at)
+    os.makedirs(os.path.join("build", "phase14"), exist_ok=True)
+    save = (CKPT_AT, os.path.join("build", "phase14", "vio_ckpt.pkl"))
+    sync, recs = run_vio(torch, frames, cfg, False, profile_at, save)
     ate, bg_err = vio_gates(sync, frames, "sync")
     info = sync.solve_info
     steady = [r for r in recs if r.get("steady")]
@@ -1610,22 +1663,29 @@ def phase_vio(torch, card):
           f"{dev_ms:.3f} ms of device time [{card}]", flush=True)
     check(waits == [3], f"host waits per steady keyframe {waits}")
 
-    dfr, recs_d = run_vio(torch, frames, cfg, True)
-    ate_d, _ = vio_gates(dfr, frames, "deferred")
-    check(len(dfr.trajectory) == len(sync.trajectory),
+    # the deferred run takes the first DEFER_FRAMES frames (the depth cut
+    # that keeps the script within its time): the sync run's poses up to
+    # there
+    dfr, recs_d = run_vio(torch, frames[:DEFER_FRAMES], cfg, True)
+    t_cut = frames[DEFER_FRAMES - 1]["t"] + 1e-6
+    sync_cut = [r for r in sync.trajectory if r[0] <= t_cut]
+    ate_d, _ = vio_gates(dfr, frames, "deferred", min_poses=20)
+    check(len(dfr.trajectory) == len(sync_cut),
           "deferred and sync trajectories differ in length")
     gap = max(float(np.abs(a[1] - b[1]).max())
-              for a, b in zip(sync.trajectory, dfr.trajectory))
+              for a, b in zip(sync_cut, dfr.trajectory))
     steady_d = [r for r in recs_d if r.get("steady")]
     info_d = dfr.solve_info
-    print(f"vio: deferred readback: ATE {ate_d:.4f} m, trajectory within "
-          f"{gap:.2e} m of the sync run's; {info_d['harvests_ready']} of "
+    print(f"vio: deferred readback, the first {DEFER_FRAMES} frames: ATE "
+          f"{ate_d:.4f} m, {len(dfr.trajectory)} poses within {gap:.2e} m "
+          f"of the sync run's; {info_d['harvests_ready']} of "
           f"{info_d['harvests']} packs done when harvested; counted host "
           f"waits per keyframe {sorted({r['syncs'] for r in steady_d})} "
           f"(the two eigh; the harvest waits on an event); wall per "
           f"keyframe median {np.median([r['wall'] for r in steady_d]):.1f} "
           f"ms [{card}]", flush=True)
     check(gap < 1e-4, f"deferred trajectory {gap} m from sync")
+    return cfg, frames, save[0], save[1], sync
 
 
 
@@ -1639,6 +1699,7 @@ VIL_AZIMUTH = 900          # the reference sensor: 16 rings x 900 steps
 VIL_HZ = 10.0
 VIL_KICK_AT = 25           # the frame after which the odometry is kicked
 VIL_KICK = (0.4, 0.0, 0.0)  # m, added to the window's newest position
+VIL_DEFER_FRAMES = 40      # phase 12's deferred run: frames 0.5 to 4.4 s
 IDENTITY = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
 
 
@@ -1787,12 +1848,12 @@ def run_vil_card(torch, frames, sweeps, cfg, defer, profile_sweep=None,
     return est, frame_recs, sweep_recs
 
 
-def vil_gates(est, frames, what):
+def vil_gates(est, frames, what, min_poses=40):
     """The gates of one phase-12 run on its estimator; returns the ATE."""
     check(est.status == est.NON_LINEAR, f"{what}: not initialized")
     check(est.failures == 0, f"{what}: {est.failures} failures")
     traj = np.asarray([p for _, p, _, _ in est.trajectory])
-    check(len(traj) > 40 and bool(np.isfinite(traj).all()),
+    check(len(traj) > min_poses and bool(np.isfinite(traj).all()),
           f"{what}: {len(traj)} poses or not finite")
     ate = ate_4dof(est.trajectory, frames)
     check(ate < 0.3, f"{what}: ATE {ate} m")
@@ -1990,10 +2051,16 @@ def phase_vil(torch, card):
     check(len(icp) >= 1, "no solve with an active ICP row")
     check(waits == [1], f"host waits per classified sweep {waits}")
 
-    dfr, recs_d, srecs_d = run_vil_card(torch, frames, sweeps, cfg, True,
-                                        None, VIL_KICK_AT)
-    ate_d = vil_gates(dfr, frames, "deferred")
-    check(len(dfr.trajectory) == len(sync.trajectory),
+    # the deferred run takes the first VIL_DEFER_FRAMES frames and the
+    # sweeps among them (the depth cut that keeps the script within its
+    # time), the kick included: the sync run's poses and modes up to there
+    dfr, recs_d, srecs_d = run_vil_card(torch, frames[:VIL_DEFER_FRAMES],
+                                        sweeps, cfg, True, None,
+                                        VIL_KICK_AT)
+    t_cut = frames[VIL_DEFER_FRAMES - 1]["t"] + 1e-6
+    sync_cut = [r for r in sync.trajectory if r[0] <= t_cut]
+    ate_d = vil_gates(dfr, frames, "deferred", min_poses=25)
+    check(len(dfr.trajectory) == len(sync_cut),
           "deferred and sync trajectories differ in length")
     # the deferred run classifies a sweep at the next sweep, so its
     # record reaches the solves one keyframe later than in sync mode (the
@@ -2007,23 +2074,31 @@ def phase_vil(torch, card):
                   len(steady))
     n0 = len(sync.trajectory) - len(steady)
     gaps = [float(np.abs(a[1] - b[1]).max())
-            for a, b in zip(sync.trajectory, dfr.trajectory)]
+            for a, b in zip(sync_cut, dfr.trajectory)]
     gap = max(gaps[:n0 + differ])
     dmodes = sorted({r["syncs"] for r in srecs_d if "wall" in r})
-    print(f"vil: deferred (keyframe pack and sweep pack): ATE {ate_d:.4f} "
+    # the sync run's modes of the sweeps the deferred run took (a first
+    # sweep is mode 0 at dispatch and counted in no mode)
+    mc_s = [0] * 6
+    for r in srecs[:len(srecs_d)]:
+        if r["mode"] in (1, 2, 3, 4, 5):
+            mc_s[r["mode"]] += 1
+    print(f"vil: deferred (keyframe pack and sweep pack), the first "
+          f"{VIL_DEFER_FRAMES} frames: ATE {ate_d:.4f} "
           f"m; the first {n0 + differ} of {len(gaps)} poses, up to the "
           f"first solve with an ICP row in either run, within "
           f"{gap:.2e} m of the sync run's, all within {max(gaps):.2e} m; "
           f"host waits per sweep at dispatch {dmodes} (expected [0]); "
           f"deferred modes {sum(1 for r in srecs_d if r['mode'] is None)} "
           f"pending at dispatch, mode counts {dfr.lidar.mode_counts} "
-          f"against sync's {sync.lidar.mode_counts} [{card}]", flush=True)
+          f"against sync's {mc_s} over the same {len(srecs_d)} sweeps "
+          f"[{card}]", flush=True)
     check(gap < 1e-4, f"deferred trajectory {gap} m from sync")
     check(max(gaps) < 1e-2, f"deferred trajectory {max(gaps)} m from sync")
     # a sweep near the 0.1 m gate is mode 2 in one run and 3 in another
     # (two sync runs on an H100 made 2 and 6 mode-3 records): hold the
     # totals, which a dropped or twice-harvested pack would change
-    mc_s, mc_d = sync.lidar.mode_counts, dfr.lidar.mode_counts
+    mc_d = dfr.lidar.mode_counts
     check(sum(mc_s) == sum(mc_d) and mc_d[3] >= 1 and all(
         mc_s[m] == mc_d[m] for m in (0, 1, 4, 5)),
         f"deferred mode counts {mc_d} against sync's {mc_s}")
@@ -2037,8 +2112,8 @@ def phase_vil(torch, card):
 # ---------------------------------------------------------------------------
 
 SYS_DURATION = 7.0         # tests/test_full_system.py's trajectory
-SYS_T_END = 5.2            # frames 0.5 to 5.2 s
-SYS_LIDAR = (1.35, 4.8)    # its sweeps' span, here at 10 Hz
+SYS_T_END = 4.2            # frames 0.5 to 4.2 s (the test's run to 5.2 s)
+SYS_LIDAR = (1.35, 4.0)    # its sweeps' span, here at 10 Hz
 RESULT_LINE = r"-?\d+\.\d{6}"
 
 
@@ -2052,6 +2127,13 @@ def system_config(max_features=256):
         vil_config(max_features, vgicp_iters=8),
         local_mapping=LocalMappingConfig(submap_trigger_dist=1.0,
                                          submap_trigger_frames=8))
+
+
+def bag_sweep(s):
+    """A simulate_sweep sweep as a bag carries it (io/fixture.py): its
+    start time and its points, those without a return at the origin,
+    which the compensator's minimum range drops."""
+    return s["t_start"], np.where(s["mask"][:, None], s["pts"], 0.0)
 
 
 def stage_timer(obj, name, acc, after=None):
@@ -2111,13 +2193,14 @@ def phase_system(torch, card):
     stage_timer(sys_.compensator, "process", acc)
     stage_timer(sys_.depth_register, "get_depth", acc,
                 lambda d: depth.append(int((d > 0).sum())))
+    rows = solve_rows(sys_)
     K.knn_topk_cuda.launches = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)   # a repeated stamp
-        run_stream(sys_, frames, sweeps, lambda s: sys_.process_lidar(
-            s["t_start"], s["pts"], s["mask"]))
+        run_stream(sys_, frames, sweeps,
+                   lambda s: sys_.process_lidar(*bag_sweep(s)))
     sys_.flush()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
@@ -2161,6 +2244,316 @@ def phase_system(torch, card):
     check(ate < 0.3, f"system ATE {ate} m")
     check(n_mapped > 0 and launches == 6 * n_mapped,
           f"{launches} k-NN launches for {n_mapped} mapped sweeps")
+    return launches, (sys_, rows), frames, sweeps
+
+
+# ---------------------------------------------------------------------------
+# the offline runner on a fixture bag, the stream hand-offs and
+# checkpoint/resume: phase 14
+# ---------------------------------------------------------------------------
+
+BAG_DURATION = 6.0         # s of 200 Hz IMU, 30 Hz images, 10 Hz sweeps
+BAG_AZIMUTH = 900          # the reference sensor: 16 rings x 900 steps
+# the hand-off gates: the pipeline's frontend trajectory against a
+# synchronous run's, tight up to the first solve that carries an ICP or an
+# LPS row in either run, loose over all: those rows come from registrations
+# on voxel maps summed by float atomics, and two synchronous runs on an
+# H100 lay 1.5-18 mm apart after them (a sweep near the drift gate flips
+# its mode), to the bit before them
+HANDOFF_TIGHT = 1e-4
+HANDOFF_LOOSE = 5e-2
+
+
+def record_phase_bag(directory):
+    """The fixture bag of bench.py's configuration, recorded by the port,
+    and fixture_config() as the runner's --config JSON: (bag path,
+    ground-truth TUM path, configuration path, seconds taken)."""
+    import os
+    from mvil_fusion_torch.io.fixture import (fixture_config,
+                                              record_fixture_bag)
+    bag = os.path.join(directory, "fixture.bag")
+    gt = os.path.join(directory, "gt_tum.txt")
+    cfg = os.path.join(directory, "fixture_config.json")
+    t = time.perf_counter()
+    record_fixture_bag(bag, duration=BAG_DURATION, imu_hz=200.0,
+                       image_hz=30.0, lidar_hz=10.0, n_azimuth=BAG_AZIMUTH,
+                       seed=SEED, compression="lz4", gt_path=gt)
+    with open(cfg, "w") as f:
+        json.dump(fixture_config().to_dict(), f)
+    return bag, gt, cfg, time.perf_counter() - t
+
+
+def runner_gates(result, prefix, what, ate_gate):
+    """tests/test_offline_runner.py::_check on one result of run.main."""
+    import os
+    check(result["failures"] == 0, f"{what}: {result['failures']} failures")
+    check(result["frontend_poses"] > 25 and result["midend_poses"] >= 3,
+          f"{what}: {result['frontend_poses']} frontend, "
+          f"{result['midend_poses']} midend poses")
+    check(result["ate_frontend_m"] < ate_gate,
+          f"{what}: frontend ATE {result['ate_frontend_m']} m")
+    check(result["ate_midend_m"] < max(2.0 * result["ate_frontend_m"],
+                                       0.35),
+          f"{what}: midend ATE {result['ate_midend_m']} m")
+    if result.get("backend_poses", 0) >= 3:
+        check(result["ate_backend_m"] < max(2.0 * result["ate_midend_m"],
+                                            0.35),
+              f"{what}: backend ATE {result['ate_backend_m']} m")
+    for name in ("Frontend.txt", "Midend.txt", "ex_results.txt"):
+        with open(prefix + name) as f:
+            check(len(f.readlines()) >= 1, f"{what}: {name} is empty")
+    with open(prefix + "ex_results.txt") as f:
+        check(len(f.readline().split()) == 14,
+              f"{what}: an ex_results row has not 14 columns")
+
+
+def run_runner(torch, K, argv):
+    """run.main(argv) on the card: (its result, the VilSystem it built, the
+    threaded Pipeline or None, k-NN launches, wall s, peak device bytes)."""
+    from mvil_fusion_torch import run as runner
+    from mvil_fusion_torch.pipeline import async_system
+    seen = {}
+    make_system, make_pipe = runner.VilSystem, async_system.build_pipeline
+
+    def system(*a, **k):
+        seen["system"] = make_system(*a, **k)
+        return seen["system"]
+
+    def pipeline(*a, **k):
+        seen["pipe"] = make_pipe(*a, **k)
+        return seen["pipe"]
+    runner.VilSystem, async_system.build_pipeline = system, pipeline
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.knn_topk_cuda.launches = 0
+    t = time.perf_counter()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            result = runner.main(argv)
+    finally:
+        runner.VilSystem, async_system.build_pipeline = \
+            make_system, make_pipe
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return (result, seen["system"], seen.get("pipe"),
+            K.knn_topk_cuda.launches, wall,
+            torch.cuda.max_memory_allocated())
+
+
+def run_pipeline_stream(torch, system, frames, sweeps):
+    """run_stream's order through the deterministic pipeline of `system`:
+    IMU samples and bag-carried sweeps into the frontend stage, and each
+    frame's features, with their LiDAR depth looked up on the frontend's
+    stream as VilSystem.process_features looks it up, into the estimator
+    stage (the frontend stage takes images, and this stream has
+    features)."""
+    from mvil_fusion_torch.pipeline.async_system import build_pipeline
+    pipe = build_pipeline(system, deterministic=True)
+    est = system.estimator
+    li = 0
+    for f in frames:
+        ts, acc, gyr = f["imu"]
+        for k in range(len(ts)):
+            pipe.feed(("imu", ts[k], (acc[k], gyr[k])))
+        with torch.cuda.stream(pipe.streams["frontend"]):
+            depth = system._feature_depths(f["t"], f["norm"],
+                                           np.ones(len(f["ids"]), bool))
+        pipe.stages[1].inbox.put(("features", f["t"], (
+            f["ids"], f["norm"], f["vel"], depth)))
+        pipe.drain()
+        while (li < len(sweeps) and sweeps[li]["t_start"] + 0.1 <= f["t"]
+               and est.status == est.NON_LINEAR):
+            t0, pts = bag_sweep(sweeps[li])
+            pipe.feed(("lidar", t0, (pts, None)))
+            li += 1
+    pipe.feed(("flush", frames[-1]["t"], ()))
+    for st in pipe.stages:
+        check(not st.errors, f"deterministic pipeline, stage {st.name}: "
+              f"{st.errors[:1]}")
+    # the last localizer pose reaches the estimator at its next message in
+    # the pipeline, at once in the synchronous system
+    while len(pipe.lps_channel):
+        est.process_lps(*pipe.lps_channel.get(timeout=0.0))
+    return pipe
+
+
+def system_counts(sys_):
+    """What the hand-off check holds equal between two runs of a system."""
+    est = sys_.estimator
+    return dict(keyframes=len(est.trajectory),
+                classified=sum(est.lidar.mode_counts[1:]),
+                mapped=len(sys_.local_mapper.trajectory),
+                submaps=sys_.local_mapper.submaps_emitted)
+
+
+def trajectory_spread(a, b):
+    check(len(a) == len(b), f"trajectories of {len(a)} and {len(b)} poses")
+    return max(float(np.abs(np.asarray(x[1]) - np.asarray(y[1])).max())
+               for x, y in zip(a, b))
+
+
+def solve_rows(sys_):
+    """Record, for each steady-state solve of sys_'s estimator, whether its
+    tables carried an ICP or an LPS row: a list that grows as it runs."""
+    est = sys_.estimator
+    rows, inner = [], est.process_features
+
+    def wrapped(*a, **k):
+        steady, solves = est.status == est.NON_LINEAR, est._solves
+        out = inner(*a, **k)
+        if steady and est._solves > solves:
+            tab = est._tables
+            rows.append(bool(tab["icp_act"].any() or tab["lps_act"].any()))
+        return out
+    est.process_features = wrapped
+    return rows
+
+
+def handoff_gaps(a, rows_a, b, rows_b):
+    """Two runs' frontend trajectories: (their largest distance up to the
+    first solve with an ICP or LPS row in either, over all, the poses
+    before that solve)."""
+    ta, tb = a.estimator.trajectory, b.estimator.trajectory
+    check(len(ta) == len(tb), f"trajectories of {len(ta)} and {len(tb)} "
+          f"poses")
+    first = next((k for k, (x, y) in enumerate(zip(rows_a, rows_b))
+                  if x or y), min(len(rows_a), len(rows_b)))
+    n = len(ta) - len(rows_a) + first
+    gaps = [float(np.abs(np.asarray(x[1]) - np.asarray(y[1])).max())
+            for x, y in zip(ta, tb)]
+    return max(gaps[:n], default=0.0), max(gaps), n
+
+
+def phase_handoff(torch, card, sync, frames, sweeps):
+    """The stream hand-offs on the card: phase 13's stream through the
+    deterministic pipeline, whose three stages run on their own streams,
+    against phase 13's synchronous run (`sync`: its VilSystem and its
+    solve_rows)."""
+    from mvil_fusion_torch.pipeline.system import VilSystem
+    sync, rows = sync
+    t = time.perf_counter()
+    det = VilSystem(sync.cfg)
+    rows_det = solve_rows(det)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        pipe = run_pipeline_stream(torch, det, frames, sweeps)
+    torch.cuda.synchronize()
+    t_det = time.perf_counter() - t
+    streams = {st.name: st.stream for st in pipe.stages}
+    check(all(s is not None for s in streams.values()) and len(
+        {id(s) for s in streams.values()}) == 3,
+        "the pipeline's stages do not run on three streams of their own")
+    counts = [system_counts(x) for x in (sync, det)]
+    tight, loose, n = handoff_gaps(sync, rows, det, rows_det)
+    print(f"pipeline: hand-offs on phase 13's stream: the deterministic "
+          f"pipeline on three streams ({t_det:.1f} s) against phase 13's "
+          f"synchronous run: the first {n} of "
+          f"{len(det.estimator.trajectory)} poses, up to the first solve "
+          f"with an ICP or LPS row in either run, within {tight:.3e} m "
+          f"(gate {HANDOFF_TIGHT:g}), all within {loose:.3e} m (gate "
+          f"{HANDOFF_LOOSE:g}); counts sync {counts[0]}, pipeline "
+          f"{counts[1]} [{card}]", flush=True)
+    check(counts[0] == counts[1],
+          f"keyframe, sweep or submap counts differ: {counts}")
+    check(n > 0 and tight <= HANDOFF_TIGHT,
+          f"the pipeline's first {n} poses are {tight} m from the "
+          f"synchronous run's")
+    check(loose <= HANDOFF_LOOSE,
+          f"the pipeline's trajectory is {loose} m from the synchronous "
+          f"run's")
+
+
+def phase_checkpoint(torch, card, vio):
+    """Phase 11's sync run, checkpointed before frame CKPT_AT, resumed in a
+    fresh VIOEstimator on the card and continued to the end."""
+    from mvil_fusion_torch.estimator.vio import VIOEstimator
+    from mvil_fusion_torch.utils import checkpoint
+    cfg, frames, at, path, original = vio
+    est = VIOEstimator(cfg)
+    checkpoint.load_system(est, path)
+    check(est.state.p.is_cuda and est.status == est.NON_LINEAR,
+          "the restored estimator is not a NON_LINEAR one on the card")
+    t = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        for f in frames[at:]:
+            feed(est, f)
+    est.flush()
+    torch.cuda.synchronize()
+    gap = trajectory_spread(original.trajectory, est.trajectory)
+    print(f"pipeline: checkpoint of phase 11's sync run before frame {at} "
+          f"resumed on the card: {len(frames) - at} more frames in "
+          f"{time.perf_counter() - t:.1f} s, {len(est.trajectory)} poses "
+          f"like the original's {len(original.trajectory)}, within "
+          f"{gap:.3e} m of it (gate 1e-4) [{card}]", flush=True)
+    check(gap < 1e-4, f"the resumed trajectory is {gap} m from the "
+          f"original's")
+
+
+def phase_runner(torch, card, K):
+    """The offline runner on a fixture bag, sync and threaded; see the
+    module docstring.  Returns the threaded run's k-NN launches."""
+    import os
+    from mvil_fusion_torch.io.fixture import fixture_config
+    directory = os.path.join("build", "phase14")
+    os.makedirs(directory, exist_ok=True)
+    bag, gt, cfg_path, rec_s = record_phase_bag(directory)
+    cfg = fixture_config()
+    check(cfg.tracker.max_cnt == 150 and cfg.estimator.max_features == 256
+          and cfg.camera.width == 640 and cfg.camera.height == 480,
+          "fixture_config() is not bench.py's configuration")
+    runs = {}
+    for what, extra, gate in (("sync", ["--save-map"], 0.3),
+                              ("threaded", ["--threaded"], 0.7)):
+        prefix = os.path.join(directory, f"{what}_")
+        argv = ["--bag", bag, "--config", cfg_path, "--out", prefix,
+                "--golden", gt] + extra
+        result, sys_, pipe, launches, wall, peak = run_runner(torch, K, argv)
+        check(sys_.device.type == "cuda" and sys_.cfg == cfg,
+              f"{what}: not on the card, or not at fixture_config()")
+        runner_gates(result, prefix, what, gate)
+        runs[what] = (result, sys_, pipe, launches, wall, peak)
+        msgs = result["msgs"]
+        est = sys_.estimator
+        sensor_s = (est.trajectory[-1][0] - est.trajectory[0][0])
+        print(f"runner: {what}: {msgs['image']} images, {msgs['imu']} IMU, "
+              f"{msgs['lidar']} sweeps; {result['frontend_poses']} "
+              f"keyframes ({est.failures} failures), "
+              f"{result['midend_poses']} mapped sweeps, "
+              f"{result['backend_poses']} submaps; ATE frontend "
+              f"{result['ate_frontend_m']}, midend {result['ate_midend_m']}"
+              f", backend {result.get('ate_backend_m')} m; wall {wall:.2f} "
+              f"s, {sensor_s / wall:.4f} sensor-seconds per wall-second "
+              f"(the runner's own: {result.get('sensor_sec_per_sec')}); "
+              f"k-NN launches {launches}; peak device memory "
+              f"{peak / 2**30:.2f} GiB [{card}]", flush=True)
+    sync_result = runs["sync"][0]
+    check(sync_result["map_points"] > 100,
+          f"sync: {sync_result['map_points']} map points")
+    with open(os.path.join(directory, "sync_Map.pcd")) as f:
+        check(f"POINTS {sync_result['map_points']}" in f.read(),
+              "sync: Map.pcd does not hold the map")
+    m = np.load(os.path.join(directory, "sync_Map.npz"))["points"]
+    check(m.shape == (sync_result["map_points"], 3)
+          and bool(np.isfinite(m).all()), "sync: Map.npz")
+    result, sys_, pipe, launches, wall, _ = runs["threaded"]
+    stages = ", ".join(
+        f"{st.name} busy {st.busy_s:.2f} s ({st.busy_s / wall:.3f} of the "
+        f"wall), {st.processed} processed" for st in pipe.stages)
+    print(f"runner: threaded stages: {stages}; shed "
+          f"{result['msgs']['shed']}; mapped sweeps "
+          f"{result['midend_poses']}, k-NN launches {launches} (expected "
+          f"{6 * result['midend_poses']}); streams "
+          f"{[st.stream.stream_id for st in pipe.stages]} [{card}]",
+          flush=True)
+    check(all(not st.errors for st in pipe.stages), "threaded: stage errors")
+    check(not any(st.thread.is_alive() for st in pipe.stages),
+          "threaded: a stage thread is alive after stop")
+    check(launches == 6 * result["midend_poses"],
+          f"threaded: {launches} k-NN launches for "
+          f"{result['midend_poses']} mapped sweeps")
+    print(f"runner: bag recorded in {rec_s:.1f} s", flush=True)
     return launches
 
 
@@ -2235,23 +2628,32 @@ def main() -> int:
     phase_window(torch, card)
 
     # 11. mono VIO end to end on the card
-    phase_vio(torch, card)
+    vio = phase_vio(torch, card)
 
     # 12. VIL odometry on the card
     phase_vil(torch, card)
 
     # 13. the whole system on the card
-    sys_launches = phase_system(torch, card)
+    sys_launches, sys13, frames13, sweeps13 = phase_system(torch, card)
+
+    # 14. the offline runner, the stream hand-offs and checkpoint/resume
+    t14 = time.perf_counter()
+    launches14 = phase_runner(torch, card, K)
+    phase_handoff(torch, card, sys13, frames13, sweeps13)
+    phase_checkpoint(torch, card, vio)
+    print(f"pipeline: phase 14 took {time.perf_counter() - t14:.1f} s",
+          flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "knn_topk", "route": "cuda",
         "source": "mvil_fusion_torch/csrc/knn_topk.cu",
         "replaces": "mvil_fusion_tpu/ops/pallas_knn.py:145",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches14, "max_abs_err": max_err,
         "ms": main_ms, "call_ms": main_call_ms, "plain_ms": main_plain_ms,
         "bound_ms": main_bound_ms, "bound_by": main_bound_by,
         "library_ms": None, "edge_ms": path[EDGE_SHAPE][0],
-        "path_data_ms": path_ms, "system_launches": sys_launches}]}),
+        "path_data_ms": path_ms, "slice_launches": launches,
+        "system_launches": sys_launches}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,12 +5,25 @@ sections and defaults (the reference's ``config/mynteye_leishen_indoor.yaml``),
 holding only the sections and fields that the ported stages read.  A later
 slice adds the fields it reads, with the reference's defaults; a test holds
 every field here to the reference's value.
+
+`SystemConfig.from_dict`/`from_json` read a configuration written by the
+reference's `to_dict`.  A field the port leaves out (`LEFT_OUT`) is taken
+only at the reference's default, and a key that neither package knows
+raises, as in the reference: a setting is never dropped silently.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
+
+
+def _freeze(x):
+    if isinstance(x, list):
+        return tuple(_freeze(v) for v in x)
+    return x
 
 
 @dataclass(frozen=True)
@@ -237,3 +250,93 @@ class SystemConfig:
         default_factory=LocalMappingConfig)
     global_mapping: GlobalMappingConfig = field(
         default_factory=GlobalMappingConfig)
+
+    @staticmethod
+    def from_dict(d: dict) -> "SystemConfig":
+        """A configuration from a dict as the reference's `to_dict` gives
+        it.  Raises KeyError for an unknown key, and for a left-out field
+        (or a key of a left-out section) at another value than the
+        reference's default."""
+        def build(cls, sub: dict):
+            names = {f.name: f for f in dataclasses.fields(cls)}
+            kwargs = {}
+            for k, v in sub.items():
+                if k in names:
+                    f = names[k]
+                    if f.type in _CONFIG_CLASSES:
+                        kwargs[k] = build(_CONFIG_CLASSES[f.type], v)
+                    else:
+                        kwargs[k] = _freeze(v)
+                elif k in LEFT_OUT.get(cls.__name__, {}):
+                    _check_left_out(f"{cls.__name__}.{k}", v,
+                                    LEFT_OUT[cls.__name__][k])
+                else:
+                    raise KeyError(f"unknown config key {cls.__name__}.{k}")
+            return cls(**kwargs)
+
+        return build(SystemConfig, d)
+
+    @staticmethod
+    def from_json(path: str) -> "SystemConfig":
+        with open(path) as f:
+            return SystemConfig.from_dict(json.load(f))
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def replace(self, **kwargs) -> "SystemConfig":
+        return dataclasses.replace(self, **kwargs)
+
+
+_CONFIG_CLASSES: dict[str, Any] = {
+    "CameraConfig": CameraConfig,
+    "TrackerConfig": TrackerConfig,
+    "ImuConfig": ImuConfig,
+    "EstimatorConfig": EstimatorConfig,
+    "LidarConfig": LidarConfig,
+    "LocalMappingConfig": LocalMappingConfig,
+    "GlobalMappingConfig": GlobalMappingConfig,
+}
+
+# What the port leaves out of the reference's configuration, with the
+# reference's defaults: fields that no ported code reads (the JAX
+# pipeline's upload pool, XLA dtypes, static capacities and LOAM extraction
+# constants the port fixes in code), and the `parallel` section until the
+# multi-device slice.
+LEFT_OUT: dict[str, dict[str, Any]] = {
+    "TrackerConfig": {"border": 1, "upload_workers": 2},
+    "EstimatorConfig": {"angle_vi": 30.0, "max_obs_per_feature": 7,
+                        "keyframe_parallax_px": 10.0, "dtype": "float32",
+                        "solver_dtype": "float32"},
+    "LidarConfig": {"transformation_epsilon": 0.0005, "max_points": 32768,
+                    "max_voxels": 16384, "drift_trans": 0.5,
+                    "max_constraints": 5, "add_lidar2cam": True,
+                    "add_lidar2lidar": True},
+    "LocalMappingConfig": {
+        "cube_size": (10.0, 10.0, 5.0), "cube_grid": (11, 11, 7),
+        "submap_halo": (2, 2, 1), "edge_sharp_per_region": 3,
+        "edge_less_sharp_per_region": 30, "flat_per_region": 4,
+        "n_subregions": 8, "curvature_threshold": 0.1,
+        "max_corner_points": 8192, "max_surf_points": 16384,
+        "knn_edge": 5, "knn_surf": 10},
+    "SystemConfig": {"parallel": {
+        "mesh_shape": (1,), "mesh_axes": ("kf",), "shard_features": True,
+        "shard_map_blocks": True}},
+}
+
+
+def _check_left_out(name: str, value, default) -> None:
+    """Raise KeyError unless a left-out field (or every key of a left-out
+    section) holds the reference's default."""
+    if isinstance(default, dict):
+        if not isinstance(value, dict):
+            raise KeyError(f"config key {name} must be a section")
+        for k, v in value.items():
+            if k not in default:
+                raise KeyError(f"unknown config key {name}.{k}")
+            _check_left_out(f"{name}.{k}", v, default[k])
+        return
+    if _freeze(value) != default:
+        raise KeyError(f"config key {name} = {value!r}: the port leaves it "
+                       f"out and takes only the reference's default "
+                       f"{default!r}")

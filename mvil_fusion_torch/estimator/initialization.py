@@ -310,7 +310,8 @@ def global_sfm(obs: np.ndarray, mask: np.ndarray, l: int,
     d = 1.0 / np.maximum(inv_d, 1e-6)
     f = np.nonzero(good)[0]
     if len(f):
-        R_s = nplie.quat_to_mat(q[start[f]]).astype(np.float32)
+        R_w = np.stack([nplie.quat_to_mat(q_i) for q_i in q])
+        R_s = R_w[start[f]].astype(np.float32)
         xyw = np.concatenate([obs[f, start[f]],
                               np.ones((len(f), 1), np.float32)], -1)
         pts[f] = np.einsum("fij,fj->fi", R_s, xyw * d[f, None]) \

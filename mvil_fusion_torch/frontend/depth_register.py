@@ -102,7 +102,14 @@ class DepthRegister:
     The ring (bufs, masks, slot_t) is therefore published as ONE tuple
     (`_snap`) — a single atomic attribute store — so a reader can never
     pair a new cloud ring with stale slot timestamps.  There is exactly
-    one writer; no lock needed."""
+    one writer; no lock needed.
+
+    On the card the two stages run on their own streams, so the tuple also
+    carries the event recorded after the ring's write (None where the ring
+    was written before any stage ran, or off the card).  A reader's stream
+    waits for it before reading, and the ring's memory is kept until the
+    reader's queued work is done (`record_stream`), whenever the writer
+    drops it."""
 
     def __init__(self, cfg: SystemConfig, window_sec: float = 5.0,
                  device: torch.device | str | None = None):
@@ -114,7 +121,7 @@ class DepthRegister:
         self._snap = (torch.zeros((N_CLOUDS, CLOUD_PTS, 3), device=dev),
                       torch.zeros((N_CLOUDS, CLOUD_PTS), dtype=torch.bool,
                                   device=dev),
-                      np.full(N_CLOUDS, -np.inf))
+                      np.full(N_CLOUDS, -np.inf), None)
 
     def _up(self, x, dtype=torch.float32) -> torch.Tensor:
         return upload(x, self.device, dtype)
@@ -144,13 +151,17 @@ class DepthRegister:
             pts_l, mask = self._up(pts_np), self._up(m, torch.bool)
             p_l = np.zeros(3, np.float32)
             q_l = np.asarray([1, 0, 0, 0], np.float32)
-        bufs, masks, slot_t = self._snap
+        bufs, masks, slot_t, _ = self._snap
         bufs, masks = _push_cloud(bufs, masks, pts_l, mask, self._up(p_l),
                                   self._up(q_l))
         slot_t = np.roll(slot_t, -1).copy()
         slot_t[-1] = t
         slot_t[slot_t < t - self.window_sec] = -np.inf
-        self._snap = (bufs, masks, slot_t)    # atomic publish
+        written = None
+        if bufs.is_cuda:
+            written = torch.cuda.Event()
+            written.record(torch.cuda.current_stream(self.device))
+        self._snap = (bufs, masks, slot_t, written)    # atomic publish
 
     def get_depth(self, t_img: float, feat_norm: np.ndarray,
                   feat_valid: np.ndarray, p_wc: np.ndarray,
@@ -167,10 +178,15 @@ class DepthRegister:
                          p_wc, q_wc):
         """Enqueue-only depth lookup: a device (F,) depth tensor, or None
         when no cloud is live."""
-        bufs, masks, slot_t = self._snap    # one consistent snapshot
+        bufs, masks, slot_t, written = self._snap   # one consistent snapshot
         slot_ok = np.isfinite(slot_t) & (slot_t > t_img - self.window_sec)
         if not slot_ok.any():
             return None
+        if written is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(written)
+            bufs.record_stream(cur)
+            masks.record_stream(cur)
         return _register_depth(
             self._up(feat_norm), self._up(feat_valid, torch.bool), bufs,
             masks, self._up(slot_ok, torch.bool), self._up(p_wc),

@@ -207,10 +207,12 @@ class VilSystem:
                                           out["mask"], out["p_l"],
                                           out["q_l"])
 
-    def _map_lidar(self, sweep, out, reflectivity=None):
+    def _map_lidar(self, sweep, out, reflectivity=None, lps_sink=None):
         """Post-estimator LiDAR path: LOAM feature extraction + local/
-        global mapping, with the localizer's pose fed back to the
-        estimator."""
+        global mapping, with the localizer's pose fed back to the estimator
+        (the threaded pipeline runs this on the mapping stage; `lps_sink`
+        redirects the localizer feedback into a channel instead of calling
+        into the estimator from another thread)."""
         if self.local_mapper is None:
             return out
         lc = self.cfg.lidar
@@ -225,7 +227,10 @@ class VilSystem:
         if sm is not None and self.global_mapper is not None:
             info = self.global_mapper.add_submap(sm)
             # LPS feedback (the /laser_localizer → estimator loop)
-            self.estimator.process_lps(info["t"], info["p"], info["q"])
+            if lps_sink is None:
+                self.estimator.process_lps(info["t"], info["p"], info["q"])
+            else:
+                lps_sink((info["t"], info["p"], info["q"]))
         return out
 
     # ------------------------------------------------------------ outputs

@@ -10,6 +10,7 @@
     python3 profile_slice.py --vio
     python3 profile_slice.py --vil
     python3 profile_slice.py --count-ops
+    python3 profile_slice.py --pipeline
 
 Drives the drift run of chip_smoke.py (40 sweeps of 16 × 900 points at the
 default SystemConfig) on cuda:0, each phase on a fresh mapper:
@@ -142,6 +143,22 @@ streams of chip_smoke.py's phases 12 and 13 (sweeps of 16 × 900 points at
    sensor-second 2.5-3.5 s split by stage (keyframes, process_lidar,
    process_full, add_submap, depth lookups and clouds, compensator; host
    clock, device drained after each call).
+
+With --pipeline it profiles one threaded run of chip_smoke.py's phase-14
+bag instead (run.main with --threaded on the recorded fixture bag and
+--config fixture_config()), under torch.profiler's CUDA activity (the card's
+kernels and copies on every stream, and each thread's launches):
+
+1. stages: each stage's busy seconds (its calls, host clock) and the
+   kernel launches inside its calls (the profiler gives every launch the
+   same thread id, so a launch goes to the stage whose call holds it;
+   calls of two stages overlap, and their launches count apart);
+2. device: the share of the run's wall in which some kernel or copy ran
+   on the card (the union over the three streams);
+3. gaps: the idle time by the stage that launched the kernel ending each
+   stretch with nothing on the card, and the longest such stretches, each
+   with the stages whose host code was running then (their share of the
+   gap).
 
 With --count-ops it runs on the CPU and needs no card: the aten operations
 (views left out) that one frame step of that window dispatches, at iters 8
@@ -1076,6 +1093,129 @@ def vil_profile(torch, card) -> None:
           flush=True)
 
 
+def _union(intervals):
+    """Merged [start, end) intervals of a list of them."""
+    merged = []
+    for a, b in sorted(intervals):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
+
+
+def _overlap(intervals, a, b):
+    return sum(max(0, min(e, b) - max(s, a)) for s, e in intervals)
+
+
+def pipeline_profile(torch, card, n_gaps: int = 10) -> None:
+    """One threaded run of phase 14's bag under torch.profiler; see the
+    module docstring."""
+    import os
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    from mvil_fusion_torch.pipeline import async_system
+    directory = os.path.join("build", "phase14")
+    os.makedirs(directory, exist_ok=True)
+    bag, gt, cfg, rec_s = smoke.record_phase_bag(directory)
+    print(f"pipeline: bag recorded in {rec_s:.1f} s", flush=True)
+    calls = collections.defaultdict(list)      # stage -> [(t0, t1) ns]
+    make_pipe = async_system.build_pipeline
+
+    def build(*a, **k):
+        pipe = make_pipe(*a, **k)
+        for st in pipe.stages:
+            def timed(msg, fn=st.fn, name=st.name):
+                t0 = time.time_ns()
+                try:
+                    return fn(msg)
+                finally:
+                    calls[name].append((t0, time.time_ns()))
+            st.fn = timed
+        build.pipe = pipe
+        return pipe
+    async_system.build_pipeline = build
+    from mvil_fusion_torch import run as runner
+    argv = ["--bag", bag, "--config", cfg, "--out",
+            os.path.join(directory, "profile_"), "--golden", gt,
+            "--threaded"]
+    try:
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.time_ns()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                result = runner.main(argv)
+            torch.cuda.synchronize()
+            t1 = time.time_ns()
+    finally:
+        async_system.build_pipeline = make_pipe
+    wall_ns = t1 - t0
+    device, launches = [], []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA:
+            device.append((ev.start_ns(), ev.start_ns() + ev.duration_ns(),
+                           ev.correlation_id()))
+        elif ev.name() in ("cudaLaunchKernel", "cuLaunchKernel",
+                           "cudaLaunchKernelExC", "cuLaunchKernelEx"):
+            launches.append((ev.start_ns(), ev.correlation_id()))
+    # the profiler gives every launch one thread id, so a launch is put to
+    # the stage whose call (host clock, the profiler's base) holds it;
+    # the three threads' calls overlap, and a launch inside two or more
+    # of them counts as "overlap"
+    stage_calls = {n: np.asarray(_union(v), np.int64).reshape(-1, 2)
+                   for n, v in calls.items()}
+    t_launch = np.asarray([t for t, _ in launches], np.int64)
+    inside = {}
+    for n, iv in stage_calls.items():
+        k = np.searchsorted(iv[:, 0], t_launch, side="right") - 1
+        inside[n] = (k >= 0) & (t_launch <= iv[np.maximum(k, 0), 1])
+    names = sorted(inside)
+    hits = np.stack([inside[n] for n in names]) if names else \
+        np.zeros((0, len(t_launch)), bool)
+    n_in = hits.sum(0)
+    owner = {}
+    for j, (_, c) in enumerate(launches):
+        owner[c] = (names[int(np.argmax(hits[:, j]))] if n_in[j] == 1
+                    else "overlap" if n_in[j] > 1 else "outside")
+    by_stage = collections.Counter(owner.values())
+    print(f"pipeline: {result['msgs']}; {result['frontend_poses']} "
+          f"keyframes, {result['midend_poses']} mapped sweeps; wall "
+          f"{wall_ns / 1e9:.2f} s; {len(device)} device activities, "
+          f"{len(launches)} launches: {by_stage['outside']} outside any "
+          f"stage call (the main thread's set-up and flush), "
+          f"{by_stage['overlap']} inside calls of two or three stages "
+          f"[{card}]", flush=True)
+    for st in build.pipe.stages:
+        print(f"  stage {st.name:<9} busy {st.busy_s:8.2f} s "
+              f"({st.busy_s / (wall_ns / 1e9):.3f} of the wall), "
+              f"{st.processed} processed, {by_stage.get(st.name, 0)} "
+              f"launches inside its calls alone", flush=True)
+    busy = _union([(a, b) for a, b, _ in device if b > t0 and a < t1])
+    busy_ns = sum(min(b, t1) - max(a, t0) for a, b in busy)
+    print(f"  device busy {busy_ns / 1e9:.3f} s of {wall_ns / 1e9:.2f} s:"
+          f" share {busy_ns / wall_ns:.4f}, idle {1 - busy_ns / wall_ns:.4f}"
+          f" [{card}]", flush=True)
+    starts = {a: c for a, _, c in device}
+    gaps = [(nxt[0] - cur[1], cur[1], nxt[0])
+            for cur, nxt in zip(busy, busy[1:])]
+    idle_by = collections.Counter()
+    for length, a, b in gaps:
+        idle_by[owner.get(starts.get(b), "outside")] += length
+    print("  idle time by the stage that launched the kernel ending it: "
+          + ", ".join(f"{n} {ns / 1e9:.2f} s" for n, ns in
+                      idle_by.most_common()), flush=True)
+    for length, a, b in sorted(gaps, reverse=True)[:n_gaps]:
+        who = ", ".join(
+            f"{n} {_overlap(iv.tolist(), a, b) / length:.2f}"
+            for n, iv in sorted(stage_calls.items()))
+        print(f"  gap {length / 1e6:9.2f} ms at {(a - t0) / 1e9:7.2f} s: "
+              f"host code running (share of the gap: {who}); next kernel "
+              f"launched in {owner.get(starts.get(b), 'outside')}",
+              flush=True)
+
+
 def count_ops() -> None:
     """--count-ops: the aten operations (views left out) that one frame
     step and each of its parts dispatch, on the CPU, with no card: what
@@ -1196,6 +1336,10 @@ def main() -> int:
     ap.add_argument("--vil", action="store_true",
                     help="profile a sweep of VIL odometry by part and a "
                          "sensor-second of VilSystem by stage, and stop")
+    ap.add_argument("--pipeline", action="store_true",
+                    help="profile one threaded run of chip_smoke.py's "
+                         "phase-14 bag by stage, device busy share and "
+                         "idle gaps, and stop")
     ap.add_argument("--count-ops", action="store_true",
                     help="count the operations a frame step dispatches, on "
                          "the CPU (no card needed), and stop")
@@ -1217,6 +1361,9 @@ def main() -> int:
     print(f"package: {pathlib.Path(mvil_fusion_torch.__file__).parent}",
           flush=True)
     set_fp32_policy()
+    if args.pipeline:
+        pipeline_profile(torch, card)
+        return 0
     if args.frame_step:
         frame_step_profile(torch, card)
         return 0

@@ -856,3 +856,178 @@ def test_vil_system_and_lidar_frontend_default_to_the_card(cuda):
     for part in (sys_.estimator, sys_.estimator.lidar, sys_.compensator,
                  sys_.depth_register, sys_.local_mapper, sys_.global_mapper):
         assert part.device.type == "cuda", part
+
+
+# ---------------------------------------------------------------------------
+# the threaded pipeline and checkpoint/resume (slice 5).  The hand-built
+# NON_LINEAR window below (a stationary scene, no JAX) is shared with the
+# CPU tests of tests/test_torch_{system,pipeline,checkpoint}.py.
+# ---------------------------------------------------------------------------
+
+TABLE = 1 << 14
+STILL = SyntheticTrajectory(duration=6.0, w_amp=(0.0, 0.0, 0.0),
+                            p_amp=(0.0, 0.0, 0.0), lin_vel=(0.0, 0.0, 0.0))
+IMU = (np.asarray([0.0, 0.0, 9.795]), np.zeros(3))
+SWEEP_TIMES = (0.3, 0.55, 0.65, 0.75, 0.85, 1.05, 1.2)
+
+
+def small_cfg():
+    import dataclasses
+    from mvil_fusion_torch.config import LidarConfig
+    return dataclasses.replace(SystemConfig(), lidar=LidarConfig(
+        rlb=chip_smoke.IDENTITY, tlb=(0.0, 0.0, 0.0), vgicp_iters=8,
+        vgicp_table_size=TABLE, downsample_table_size=TABLE))
+
+
+def window(sys_, t0):
+    """A NON_LINEAR window of W frames 0.1 s apart from t0."""
+    est = sys_.estimator
+    est.status = est.NON_LINEAR
+    est.times = [t0 + 0.1 * k for k in range(est.W)]
+
+
+def sweep(t):
+    s = simulate_sweep(BoxWorld(), STILL, t, n_azimuth=360)
+    return s["t_start"], s["pts"], s["mask"]
+
+
+def stream(sweep_times=SWEEP_TIMES):
+    """IMU at 200 Hz over [0.5, 1.3] with sweeps starting at sweep_times
+    among them (stale, inside the window [0.5, 1.1], past it), then the
+    flush."""
+    msgs = [("imu", t, IMU) for t in np.arange(0.5, 1.3, 0.005)]
+    for ts in sweep_times:
+        t0, pts, _ = sweep(ts)
+        msgs.append(("lidar", t0, (pts, None)))
+    msgs.sort(key=lambda m: m[1])
+    return msgs + [("flush", 1.3, ())]
+
+
+def feed_system(sys_, msgs):
+    """A stream of stream()'s messages into a synchronous VilSystem."""
+    for kind, t, payload in msgs:
+        if kind == "imu":
+            sys_.process_imu(t, *payload)
+        elif kind == "lidar":
+            sys_.process_lidar(t, payload[0], reflectivity=payload[1])
+    sys_.flush()
+
+
+def comparable(x):
+    """x as nested plain values; tensors and arrays as dtype, shape and
+    bytes."""
+    import dataclasses
+    if isinstance(x, torch.Tensor):
+        return ("tensor", str(x.dtype), tuple(x.shape),
+                x.cpu().numpy().tobytes())
+    if isinstance(x, np.ndarray):
+        return ("array", x.dtype.str, x.shape, x.tobytes())
+    if isinstance(x, np.generic):
+        return ("scalar", x.dtype.str, x.tobytes())
+    if dataclasses.is_dataclass(x):
+        return (type(x).__name__, {f.name: comparable(getattr(x, f.name))
+                                   for f in dataclasses.fields(x)})
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return (type(x).__name__, [comparable(v) for v in x])
+    if isinstance(x, (list, tuple)):
+        return [comparable(v) for v in x]
+    if isinstance(x, dict):
+        return {k: comparable(v) for k, v in x.items()}
+    return x
+
+
+def saved_state(sys_):
+    """Everything utils/checkpoint.save_system writes of a VilSystem,
+    comparable."""
+    from mvil_fusion_torch.utils import checkpoint as ck
+    est = sys_.estimator
+    return comparable(dict(
+        estimator=ck._take(est, ck.ESTIMATOR),
+        lidar=ck._take(est.lidar, ck.LIDAR),
+        local=ck._take(sys_.local_mapper, ck.LOCAL),
+        glob=ck._take(sys_.global_mapper, ck.GLOBAL),
+        system=ck._take(sys_, ck.SYSTEM),
+        ring=sys_.depth_register._snap[:3]))
+
+
+def test_deterministic_pipeline_on_card_matches_sync(cuda):
+    """Phase 14's hand-off check at test size: a short stretch of phase
+    13's stream (128 slots, sweeps of 16 x 360 points) through a
+    synchronous VilSystem on the card and through the deterministic
+    pipeline, whose stages run on three streams of their own: the same
+    keyframe, classified, mapped and submap counts, and the pipeline's
+    trajectory within the phase's gates (1e-4 m up to the first solve with
+    an ICP or LPS row, whose inputs float atomics move from run to run;
+    5e-2 m over all)."""
+    import dataclasses
+    from mvil_fusion_torch.config import LocalMappingConfig
+    from mvil_fusion_torch.pipeline.system import VilSystem
+    cfg = dataclasses.replace(
+        chip_smoke.system_config(max_features=128),
+        local_mapping=LocalMappingConfig(submap_trigger_dist=1.0,
+                                         submap_trigger_frames=3))
+    frames, sweeps = chip_smoke.vil_sequence(
+        chip_smoke.sequence_world(chip_smoke.SYS_DURATION), cfg, 2.6,
+        lidar_times=np.arange(1.35, 2.4, 0.1), n_azimuth=360)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        sync = VilSystem(cfg)
+        rows = chip_smoke.solve_rows(sync)
+        chip_smoke.run_stream(sync, frames, sweeps, lambda s: sync.process_lidar(
+            *chip_smoke.bag_sweep(s)))
+        sync.flush()
+        det = VilSystem(cfg)
+        rows_det = chip_smoke.solve_rows(det)
+        pipe = chip_smoke.run_pipeline_stream(torch, det, frames, sweeps)
+    assert len({id(st.stream) for st in pipe.stages}) == 3
+    counts = [chip_smoke.system_counts(x) for x in (sync, det)]
+    assert counts[0] == counts[1]
+    assert counts[0]["mapped"] >= 3 and counts[0]["submaps"] >= 1
+    tight, loose, n = chip_smoke.handoff_gaps(sync, rows, det, rows_det)
+    assert n > 0 and tight <= chip_smoke.HANDOFF_TIGHT, (tight, n)
+    assert loose <= chip_smoke.HANDOFF_LOOSE, loose
+
+
+def test_flush_sentinel_through_threaded_pipeline_on_card(cuda):
+    from mvil_fusion_torch.io.fixture import fixture_config
+    from mvil_fusion_torch.pipeline.async_system import build_pipeline
+    from mvil_fusion_torch.pipeline.system import VilSystem
+    system = VilSystem(fixture_config())
+    pipe = build_pipeline(system, deterministic=False)
+    assert system.estimator.defer_readback
+    assert all(s is not None for s in pipe.streams.values())
+    pipe.start()
+    try:
+        for k in range(20):
+            pipe.feed(("imu", k * 0.005, IMU))
+        pipe.feed(("flush", 0.1, ()))
+        assert pipe.quiesce(timeout=60.0)
+    finally:
+        pipe.stop(timeout=30.0)
+    for st in pipe.stages:
+        assert not st.errors, st.errors[:1]
+        assert not st.thread.is_alive()
+    assert [st.processed for st in pipe.stages] == [21, 21, 1]
+
+
+def test_checkpoint_from_card_resumes_on_cpu(cuda, tmp_path):
+    """A VilSystem on the card, on the hand-built window with a mapped
+    sweep and a sweep waiting, saved and loaded into a VilSystem on the
+    CPU: every saved tensor and host field equal."""
+    from mvil_fusion_torch.config import LocalMappingConfig
+    from mvil_fusion_torch.pipeline.system import VilSystem
+    from mvil_fusion_torch.utils import checkpoint
+    cfg = small_cfg().replace(local_mapping=LocalMappingConfig(
+        submap_trigger_frames=1))
+    msgs = [m for m in stream((0.3, 0.55, 0.65, 1.05))[:-1]]
+    card = VilSystem(cfg)
+    window(card, 0.5)
+    feed_system(card, msgs)
+    path = str(tmp_path / "ckpt.pkl")
+    checkpoint.save_system(card, path)
+    assert card.global_mapper.n_nodes == 2 and card._pending_sweeps
+    host = VilSystem(cfg, device="cpu")
+    checkpoint.load_system(host, path)
+    assert host.estimator.state.p.device.type == "cpu"
+    assert host.depth_register._snap[0].device.type == "cpu"
+    assert saved_state(host) == saved_state(card)

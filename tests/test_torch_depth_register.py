@@ -93,7 +93,7 @@ def test_register_depth_matches_reference(pose):
         reg.add_cloud(0.1, cloud[::3] + 0.01)
     assert len(treg.clouds) == len(jreg.clouds) == 4
     bj, mj, sj = jreg._snap
-    bt, mt, st_ = treg._snap
+    bt, mt, st_, _ = treg._snap
     np.testing.assert_array_equal(bt.numpy(), np.asarray(bj))
     np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
     np.testing.assert_array_equal(st_, sj)

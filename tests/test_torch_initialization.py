@@ -316,6 +316,33 @@ def test_global_sfm_matches_reference():
     assert rot_err(st_.q_c0_c, sj.q_c0_c) < 1e-3
 
 
+@pytest.mark.parametrize("n_rest", [3, 4, 7])
+def test_global_sfm_triangulates_the_rest_like_the_reference(n_rest):
+    """Features seen only in frames 2 and 3 (with l = 1 no frame pair of
+    the SfM holds them) are triangulated by its last pass, in the start
+    frame's pose: the same points as JAX's, for any count of them (a
+    count of 4 once gave wrong rotations without an error)."""
+    obs = noisy_obs()
+    mask = MASK.copy()
+    rest = np.nonzero(mask[:, 2] & mask[:, 3])[0][:n_rest]
+    mask[rest] = False
+    mask[rest, 2:4] = True
+    l = 1
+    sel = mask[:, l] & mask[:, W - 1]
+    rel = jinit.essential_relative_pose(
+        jax.random.PRNGKey(3), jnp.asarray(obs[:, l]),
+        jnp.asarray(obs[:, W - 1]), jnp.asarray(sel))
+    R, t = np.asarray(rel.R), np.asarray(rel.t)
+    sj = jinit.global_sfm(obs, mask, l, R, t)
+    st_ = tinit.global_sfm(obs, mask, l, R, t, device="cpu")
+    assert sj.ok and st_.ok and st_.pts_ok[rest].all()
+    np.testing.assert_array_equal(st_.pts_ok, sj.pts_ok)
+    np.testing.assert_allclose(st_.p_c0_c, sj.p_c0_c, rtol=0, atol=1e-3)
+    assert rot_err(st_.q_c0_c, sj.q_c0_c) < 1e-3
+    np.testing.assert_allclose(st_.pts[rest], np.asarray(sj.pts)[rest],
+                               rtol=0, atol=1e-3)
+
+
 def test_lstsq_takes_the_minimum_norm_answer_of_a_rank_deficient_system():
     """Two equal columns and a zero one: rank 2 of 4.  The QR-based
     torch.linalg.lstsq of a card assumes full rank; the port's SVD solve

@@ -22,36 +22,14 @@ import torch
 
 import chip_smoke
 from mvil_fusion_tpu.pipeline.system import VilSystem as JVilSystem
-from mvil_fusion_torch.config import (LidarConfig, LocalMappingConfig,
-                                      SystemConfig)
-from mvil_fusion_torch.io.synthetic import SyntheticTrajectory
-from mvil_fusion_torch.io.synthetic_lidar import BoxWorld, simulate_sweep
+from mvil_fusion_torch.config import LocalMappingConfig
 from mvil_fusion_torch.pipeline.system import VilSystem
+from test_torch_cuda import small_cfg, sweep, window
 from test_torch_depth_register import box_scene
 from test_torch_vil import jax_config
 from torch_threads import one_thread_and_warm_sqrt  # noqa: F401
 
 CPU = "cpu"
-TABLE = 1 << 14
-STILL = SyntheticTrajectory(duration=6.0, w_amp=(0.0, 0.0, 0.0),
-                            p_amp=(0.0, 0.0, 0.0), lin_vel=(0.0, 0.0, 0.0))
-
-
-def small_cfg():
-    return dataclasses.replace(SystemConfig(), lidar=LidarConfig(
-        rlb=chip_smoke.IDENTITY, tlb=(0.0, 0.0, 0.0), vgicp_iters=8,
-        vgicp_table_size=TABLE, downsample_table_size=TABLE))
-
-
-def window(sys_, t0):
-    est = sys_.estimator
-    est.status = est.NON_LINEAR
-    est.times = [t0 + 0.1 * k for k in range(est.W)]
-
-
-def sweep(t):
-    s = simulate_sweep(BoxWorld(), STILL, t, n_azimuth=360)
-    return s["t_start"], s["pts"], s["mask"]
 
 
 @pytest.fixture(scope="module")
