@@ -97,10 +97,10 @@ Phases, one line each (any failure raises and the script exits non-zero):
    the new prior's JᵀJ 1e-3 and its cost change over 1 cm / 0.01 rad
    steps 1e-3; (f) 3 host waits per step and readback (the two eigh of
    the marginalization, the readback).  Prints ms per frame_step (median
-   of 10 after 2 warm-ups, a depth cut that keeps the script within its
+   of 4 after 1 warm-up, a depth cut that keeps the script within its
    time; host clock, device drained) at iters 8 and 4
    with either marginalization, kernel launches, device ms and busy share
-   per step; the same at F = 1024 (13000 landmarks; 3 after 1), timed
+   per step; the same at F = 1024 (13000 landmarks; 2 after 1), timed
    but not gated.
 
 11. vio: mono VIO end to end on cuda:0: VIOEstimator() (its default
@@ -119,7 +119,7 @@ Phases, one line each (any failure raises and the script exits non-zero):
    keyframe (the two eigh and the readback; the host class adds none);
    the deferred trajectory within 1e-4 m of the sync one (the card's
    float atomics need not sum in the same order twice).  The deferred run
-   takes the first 35 frames (to 3.9 s; more than 20 poses, no bias
+   takes the first 28 frames (to 3.2 s; more than 20 poses, no bias
    gate), to keep the script within its time, and the sync run is
    checkpointed before frame 30 for phase 14.  Prints ms per init attempt
    by stage, the chosen anchor l and path, solve_block_s per keyframe
@@ -154,7 +154,7 @@ Phases, one line each (any failure raises and the script exits non-zero):
    reference's relaxation, and each run's voxel maps are summed by float
    atomics), the same number of classified sweeps in both runs, modes 0,
    1, 4 and 5 as often and a mode-3 record in both; the deferred run
-   takes the first 40 frames (to 4.4 s, the kick included;
+   takes the first 34 frames (to 3.8 s, the kick included;
    more than 25 poses) and the sweeps among them, and is held to the sync
    run over those (a sweep near the
    0.1 m gate goes either way).  Then the stationary two-sweep case of
@@ -181,7 +181,7 @@ Phases, one line each (any failure raises and the script exits non-zero):
    (bag_sweep: the points without a return at the origin, no mask), so
    that phase 14 can hold the pipeline to this run.
 14. pipeline: the offline runner (run.main) on a fixture bag that the
-   port's record_fixture_bag records into build/phase14/ (6.0 s: 200 Hz
+   port's record_fixture_bag records into build/phase14/ (4.5 s: 200 Hz
    IMU, 640×480 mono8 images at 30 Hz, the reference's 16-ring sweeps of
    900 azimuth steps at 10 Hz, lz4 chunks, seed 0, the truth as TUM) with
    fixture_config() unchanged as its --config JSON (150 features in 256
@@ -207,6 +207,32 @@ Phases, one line each (any failure raises and the script exits non-zero):
    run's wall and sensor-seconds per wall-second, the stages' busy
    seconds and processed counts, the sheds, images and keyframes, the
    k-NN launches and the card's peak memory.
+15. multidevice: the sharded solvers of mvil_fusion_torch/parallel at
+   the reference-scale shapes of __graft_entry__.py::dryrun_multichip
+   (its VGICP, LOAM and pose-graph data, drawn from the same generator
+   in the same order; BA on phase 10's F = 1024 window), each on meshes
+   of 1, 2 and 4 shards of cuda:0 against the unsharded solve on the
+   card: BA at 2 and 6 iterations (cost0 within 1e-4 relative, positions
+   within 2e-3 m, inverse depths within 5e-3, the same accepted count);
+   VGICP of 32,768 points with 2^16-bucket maps at 3 and 12 iterations
+   (within 1e-4 m, the same n_corr); LOAM scan-to-map of 1024 + 2048
+   queries against 8192/16384-point maps, 2 × 3 iterations (the first
+   association's counts equal, within 1e-3 m, the final counts within
+   LOAM_COUNT_TOL, 2 · 3 · n k-NN launches on n shards, the main path's
+   launches of this phase); pose-graph CG at N = 512, E = 2048, Z = 256
+   with 400 live nodes and 1200 edges, 4 × 32 iterations (within 1e-3
+   m, the same host syncs).  The 4-shard LOAM solve's per-shard k-NN
+   calls are then held, each association's shards together, to one call
+   on all their queries (equal to the bit: the kernel ranks each query
+   alone, whatever the split plan that its shard's size gives it), and
+   each against the plain version (phase 3's tolerance; the kernel's
+   fused multiply-adds round d2 apart from the plain version's).  Prints each
+   solve's wall ms, launches and device busy share per mesh.  Then the
+   allreduce smoke of parallel/distributed.py: one process over NCCL
+   with 4 shards of cuda:0, two processes over gloo with 2 shards of
+   cuda:0 each (NCCL refuses two ranks on one card; only where gloo
+   refuses CUDA tensors does the check run on CPU tensors, and the line
+   says so; any other failure on the card fails the phase).
 
 The second-to-last line is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}.  Neither JAX nor the JAX package is
@@ -216,6 +242,7 @@ imported: the configuration and the synthetic sweeps come from the port.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -1062,8 +1089,8 @@ VIO_T0 = 1.0
 VIO_DT = 0.1               # keyframes 0.1 s apart, 21 samples at 200 Hz
 VIO_LANDMARKS = {256: 3000, 1024: 13000}   # ≥ 200 of 256 slots filled
 VIO_NOISE_PX = 0.5         # observation noise, as tests/test_torch_frame_step
-STEP_REPS = 10
-STEP_WARMUP = 2
+STEP_REPS = 4
+STEP_WARMUP = 1
 
 
 def vio_world(n_landmarks):
@@ -1436,7 +1463,7 @@ def phase_window(torch, card):
             seed=3)
         args = wt.step_args(lidar=True)
         ms = {}
-        reps, warmup = (STEP_REPS, STEP_WARMUP) if n_feat == F else (3, 1)
+        reps, warmup = (STEP_REPS, STEP_WARMUP) if n_feat == F else (2, 1)
         for iters in (8, 4):
             for marg_old in (True, False):
                 ms[iters, marg_old] = time_steps(
@@ -1462,7 +1489,7 @@ SEQ_T_END = 6.0            # 55 frames at 10 Hz
 SEQ_BA = (0.05, -0.03, 0.08)
 SEQ_BG = (0.01, -0.015, 0.02)
 CKPT_AT = 42               # phase 11's sync run is checkpointed here
-DEFER_FRAMES = 35          # phase 11's deferred run: frames 0.5 to 3.9 s
+DEFER_FRAMES = 28          # phase 11's deferred run: frames 0.5 to 3.2 s
 
 
 def sequence_world(duration=8.0):
@@ -1699,7 +1726,7 @@ VIL_AZIMUTH = 900          # the reference sensor: 16 rings x 900 steps
 VIL_HZ = 10.0
 VIL_KICK_AT = 25           # the frame after which the odometry is kicked
 VIL_KICK = (0.4, 0.0, 0.0)  # m, added to the window's newest position
-VIL_DEFER_FRAMES = 40      # phase 12's deferred run: frames 0.5 to 4.4 s
+VIL_DEFER_FRAMES = 34      # phase 12's deferred run: frames 0.5 to 3.8 s
 IDENTITY = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
 
 
@@ -1938,7 +1965,7 @@ def phase_vil_parts(torch, card):
     q_l, t_l, t_b, q_b = (torch.as_tensor(a).cuda()
                           for a in calibration_pairs(torch))
     secs = []
-    for _ in range(5):
+    for _ in range(3):
         torch.cuda.synchronize()
         t = time.perf_counter()
         q, tt, ok = lf.lidar_align(q_l, t_l, t_b, q_b,
@@ -1952,7 +1979,7 @@ def phase_vil_parts(torch, card):
     align_ms = 1e3 * statistics.median(secs)
     print(f"vil: lidar_align on 40 pairs: ok {ok}, mean translation "
           f"residual {res:.5f} (limit 0.02), {align_ms:.1f} ms a call "
-          f"(median of 5, host clock, its cost gate's one wait included) "
+          f"(median of 3, host clock, its cost gate's one wait included) "
           f"[{card}]", flush=True)
     check(ok and res < 0.02, f"lidar_align: ok {ok}, residual {res}")
 
@@ -2157,7 +2184,6 @@ def check_result_files(prefix):
     """The four result files in the reference's format: TUM rows of 8
     numbers, ex_results rows of 14, each with 6 decimals; returns their
     line counts."""
-    import re
     counts = {}
     for name, n in (("Frontend.txt", 8), ("Midend.txt", 8),
                     ("Backend.txt", 8), ("ex_results.txt", 14)):
@@ -2252,7 +2278,7 @@ def phase_system(torch, card):
 # checkpoint/resume: phase 14
 # ---------------------------------------------------------------------------
 
-BAG_DURATION = 6.0         # s of 200 Hz IMU, 30 Hz images, 10 Hz sweeps
+BAG_DURATION = 4.5         # s of 200 Hz IMU, 30 Hz images, 10 Hz sweeps
 BAG_AZIMUTH = 900          # the reference sensor: 16 rings x 900 steps
 # the hand-off gates: the pipeline's frontend trajectory against a
 # synchronous run's, tight up to the first solve that carries an ICP or an
@@ -2557,10 +2583,461 @@ def phase_runner(torch, card, K):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# multi-device: phase 15
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = (1, 2, 4)     # shards of cuda:0 in each mesh
+MULTI_BA_F = 1024           # landmark slots (the reference's NUM_OF_F=1000)
+MULTI_BA_ITERS = (2, 6)
+MULTI_VGICP_ITERS = (3, 12)
+MULTI_LOAM = (1024, 2048, 8192, 16384)   # corners, surfs, corner/surf map
+MULTI_LOAM_ITERS = (2, 3)   # outer, Gauss-Newton
+MULTI_PG = (512, 2048, 256, 400, 1200)   # N, E, Z, live nodes, live edges
+MULTI_PG_ITERS = (4, 32)    # LM, CG
+# final LOAM counts, sharded against unsharded: a re-association flips
+# planes at the fit gates (MULTICHIP_r05: 69 of ~1400, 4.7 %)
+LOAM_COUNT_TOL = 0.05
+MULTI_OFFSET = (0.06, -0.04, 0.02)
+
+
+def multichip_data():
+    """The VGICP, LOAM and pose-graph inputs of
+    __graft_entry__.py::dryrun_multichip, drawn from one numpy generator
+    seeded with 0 in the same order: (VGICP target, LOAM arrays, graph
+    arrays, true node positions)."""
+    rng = np.random.default_rng(0)
+    tgt = rng.uniform(-8, 8, (32768, 3)).astype(np.float32)
+    n_c, n_s, m_c, m_s = MULTI_LOAM
+    cmap = rng.uniform(-8, 8, (m_c, 3)).astype(np.float32)
+    smap = rng.uniform(-8, 8, (m_s, 3)).astype(np.float32)
+    smap[:, 2] = np.round(smap[:, 2] / 2.0) * 2.0 \
+        + 0.02 * rng.standard_normal(m_s)      # planar sheets
+    off = np.asarray(MULTI_OFFSET, np.float32)
+    corner = cmap[rng.integers(0, m_c, n_c)] + off
+    surf = smap[rng.integers(0, m_s, n_s)] + off
+    loam = (corner, np.ones(n_c, bool), surf, np.ones(n_s, bool), cmap,
+            np.ones(m_c, bool), smap, np.ones(m_s, bool))
+    N, E, Z, n_nodes, n_edges = MULTI_PG
+    p_gt = np.cumsum(rng.normal(0, 0.4, (n_nodes, 3)), axis=0)
+    p0 = np.zeros((N, 3), np.float32)
+    p0[:n_nodes] = p_gt + rng.normal(0, 0.05, p_gt.shape)
+    e_i, e_j = np.zeros(E, np.int64), np.zeros(E, np.int64)
+    e_dp = np.zeros((E, 3), np.float32)
+    e_w, e_mask = np.zeros(E, np.float32), np.zeros(E, bool)
+    for k in range(n_edges):
+        if k < n_nodes - 1:
+            i, j = k, k + 1
+        else:
+            i = int(rng.integers(0, n_nodes - 2))
+            j = int(rng.integers(i + 1, n_nodes))
+        e_i[k], e_j[k] = i, j
+        e_dp[k] = p_gt[j] - p_gt[i] + rng.normal(0, 0.01, 3)
+        e_w[k], e_mask[k] = 10.0, True
+    ident = np.asarray([1.0, 0.0, 0.0, 0.0], np.float32)
+    node_mask = np.zeros(N, bool)
+    node_mask[:n_nodes] = True
+    graph = dict(p=p0, q=np.tile(ident, (N, 1)), node_mask=node_mask,
+                 e_i=e_i, e_j=e_j, e_dp=e_dp, e_dq=np.tile(ident, (E, 1)),
+                 e_w=e_w, e_mask=e_mask, z_node=np.zeros(Z, np.int64),
+                 z_val=np.zeros(Z, np.float32), z_w=np.zeros(Z, np.float32),
+                 z_mask=np.zeros(Z, bool))
+    return tgt, loam, graph, p_gt
+
+
+def run_measured(torch, fn, reps=2):
+    """fn() (its result), then its wall ms (median of `reps`, host clock,
+    device drained) and one run under torch.profiler: (result, wall ms,
+    launches, device ms)."""
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t))
+    launches, dev_ms, _ = profile_device(torch, fn)
+    return out, statistics.median(walls), launches, dev_ms
+
+
+def print_costs(what, runs, card):
+    """One line of wall ms, launches and the device's busy share for the
+    unsharded run and each mesh."""
+    parts = [f"{name}: {wall:.1f} ms, {launches} launches, busy "
+             f"{dev / wall:.4f}" for name, (wall, launches, dev) in
+             runs.items()]
+    print(f"multidevice: {what} times on one card: " + "; ".join(parts)
+          + f" [{card}]", flush=True)
+
+
+def phase_multi_ba(torch, card):
+    """Feature-sharded BA at F = 1024 on meshes of MESH_SHARDS shards of
+    cuda:0 against the unsharded ba.solve."""
+    from mvil_fusion_torch.estimator import ba
+    from mvil_fusion_torch.parallel import mesh as M, sharded_ba as sba
+    win = VioWindow(torch, vio_world(VIO_LANDMARKS[MULTI_BA_F]), VIO_T0,
+                    MULTI_BA_F, "cuda:0", seed=3)
+    check(win.n_filled >= 0.8 * MULTI_BA_F,
+          f"only {win.n_filled} of {MULTI_BA_F} slots filled")
+    prob = win.problem()
+    costs, gaps = {}, []
+    for iters in MULTI_BA_ITERS:
+        def unsharded():
+            return ba.solve(win.start, prob, win.focal, iters=iters)
+        timed = iters == MULTI_BA_ITERS[0]
+        if timed:
+            ref, *costs["unsharded"] = run_measured(torch, unsharded)
+        else:
+            ref = unsharded()
+        for n in MESH_SHARDS:
+            mesh = M.make_mesh(devices=["cuda:0"] * n)
+            solver = sba.make_sharded_solver(mesh, win.focal, iters=iters)
+            s_sh, p_sh = sba.shard_problem(mesh, win.start, prob)
+            if timed:
+                res, *costs[f"{n} shards"] = run_measured(
+                    torch, lambda: solver(s_sh, p_sh))
+            else:
+                res = solver(s_sh, p_sh)
+            state = sba.gather_state(res.state)
+            dp = float((state.p - ref.state.p).abs().max())
+            dl = float((state.inv_depth - ref.state.inv_depth).abs().max())
+            c0 = abs(float(res.cost0) / float(ref.cost0) - 1.0)
+            acc = (int(res.n_accepted), int(ref.n_accepted))
+            gaps.append((iters, n, c0, dp, dl, acc))
+            check(c0 < 1e-4 and dp < 2e-3 and dl < 5e-3 and acc[0] == acc[1]
+                  and bool(torch.isfinite(res.cost1)),
+                  f"sharded BA, {n} shards, {iters} iterations: cost0 "
+                  f"{c0:.3g} relative, positions {dp:.3g} m, inverse "
+                  f"depths {dl:.3g}, accepted {acc}")
+    print(f"multidevice: BA W=7 F={MULTI_BA_F} ({win.n_filled} filled), "
+          f"sharded against unsharded (iterations, shards: |cost0| rel, "
+          f"max |dp| m, max |d inv depth|, accepted): " + "; ".join(
+              f"{i}, {n}: {c:.2e}, {p:.2e}, {d:.2e}, {a[0]}" for
+              i, n, c, p, d, a in gaps)
+          + f"; gates 1e-4, 2e-3, 5e-3, equal [{card}]", flush=True)
+    print_costs(f"BA ({MULTI_BA_ITERS[0]} iterations)", costs, card)
+
+
+def phase_multi_vgicp(torch, card, tgt):
+    """Point-sharded VGICP of a 32k-point sweep with 2^16-bucket maps."""
+    from mvil_fusion_torch.ops import vgicp, voxel
+    from mvil_fusion_torch.parallel import mesh as M
+    from mvil_fusion_torch.parallel import sharded_registration as sreg
+    dev = "cuda:0"
+    tgt_t = torch.as_tensor(tgt).to(dev)
+    src = tgt_t + torch.tensor([0.05, -0.03, 0.02], device=dev)
+    mask = torch.ones(tgt_t.shape[0], dtype=torch.bool, device=dev)
+    tgt_map = voxel.build_gaussian_voxel_map(tgt_t, mask, 0.5,
+                                             table_size=1 << 16)
+    src_map = voxel.build_gaussian_voxel_map(src, mask, 0.5,
+                                             table_size=1 << 16)
+    p0 = torch.zeros(3, device=dev)
+    q0 = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
+    costs, gaps = {}, []
+    for iters in MULTI_VGICP_ITERS:
+        def unsharded():
+            return vgicp.vgicp_align(src, mask, tgt_map, src_map, p0, q0,
+                                     iters=iters)
+        timed = iters == MULTI_VGICP_ITERS[0]
+        if timed:
+            ref, *costs["unsharded"] = run_measured(torch, unsharded)
+        else:
+            ref = unsharded()
+        for n in MESH_SHARDS:
+            mesh = M.make_mesh(devices=[dev] * n)
+            align = sreg.make_sharded_vgicp(mesh, iters=iters)
+            pts, pmask = sreg.shard_points(mesh, src, mask)
+
+            def sharded():
+                return align(pts, pmask, tgt_map, src_map, p0, q0)
+            if timed:
+                res, *costs[f"{n} shards"] = run_measured(torch, sharded)
+            else:
+                res = sharded()
+            dp = float((res.p - ref.p).abs().max())
+            nc = (int(res.n_corr), int(ref.n_corr))
+            gaps.append((iters, n, dp, nc, float(res.fitness)))
+            check(dp < 1e-4 and nc[0] == nc[1]
+                  and bool(torch.isfinite(res.fitness)),
+                  f"sharded VGICP, {n} shards, {iters} iterations: "
+                  f"|dp| {dp:.3g} m, n_corr {nc}")
+    print(f"multidevice: VGICP {tgt.shape[0]} points, 2^16-bucket maps, "
+          f"sharded against unsharded (iterations, shards: max |dp| m, "
+          f"n_corr, fitness): " + "; ".join(
+              f"{i}, {n}: {p:.2e}, {c[0]}, {f:.4e}" for i, n, p, c, f in gaps)
+          + f"; gates 1e-4 m, equal n_corr [{card}]", flush=True)
+    print_costs(f"VGICP ({MULTI_VGICP_ITERS[0]} iterations)", costs, card)
+
+
+def phase_multi_loam(torch, card, K, loam):
+    """Query-sharded LOAM scan-to-map: the k-NN kernel on every shard's
+    block of queries.  Returns (the k-NN launches of the sharded solves,
+    the largest |d2| error of the per-shard calls against the plain
+    version, {per-shard call shape: kernel device ms})."""
+    from mvil_fusion_torch.ops import loam_icp
+    from mvil_fusion_torch.parallel import mesh as M
+    from mvil_fusion_torch.parallel import sharded_loam as sl
+    dev = "cuda:0"
+    args = tuple(torch.as_tensor(a).to(dev) for a in loam)
+    p0 = torch.zeros(3, device=dev)
+    q0 = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
+    outer, gn = MULTI_LOAM_ITERS
+    first = loam_icp.find_correspondences(*args, p0, q0)
+    first = (int(first.edge_ok.sum()), int(first.plane_ok.sum()))
+    ref, *unsharded_costs = run_measured(torch, lambda: loam_icp.scan_to_map(
+        *args, p0, q0, outer_iters=outer, gn_iters=gn))
+    costs = {"unsharded": unsharded_costs}
+    launches, gaps, calls, real = 0, [], [], loam_icp.knn_topk
+    for n in MESH_SHARDS:
+        mesh = M.make_mesh(devices=[dev] * n)
+        s2m = sl.make_sharded_scan_to_map(mesh, outer, gn)
+        shards = sl.shard_features(mesh, *args[:4])
+        firsts = [loam_icp.find_correspondences(
+            *(x[k] for x in shards), *args[4:], p0, q0) for k in range(n)]
+        counts = (sum(int(c.edge_ok.sum()) for c in firsts),
+                  sum(int(c.plane_ok.sum()) for c in firsts))
+        check(counts == first, f"sharded LOAM, {n} shards: first "
+              f"association {counts}, unsharded {first}")
+
+        def record(q, r, m, k):
+            out = real(q, r, m, k)
+            calls.append((q.clone(), r.clone(), m.clone(), k,
+                          tuple(x.clone() for x in out)))
+            return out
+        # the main path's run: the kernel's launches counted, and the last
+        # mesh's per-shard calls recorded for the comparison with plain
+        torch.cuda.synchronize()
+        K.knn_topk_cuda.launches = 0
+        if n == MESH_SHARDS[-1]:
+            loam_icp.knn_topk = record
+        try:
+            p, q, ne, npl = s2m(*shards, *args[4:], p0, q0)
+        finally:
+            loam_icp.knn_topk = real
+        torch.cuda.synchronize()
+        got = K.knn_topk_cuda.launches
+        check(got == 2 * (outer + 1) * n, f"sharded LOAM, {n} shards: {got} "
+              f"k-NN launches, expected {2 * (outer + 1) * n}")
+        launches += got
+        _, *costs[f"{n} shards"] = run_measured(
+            torch, lambda: s2m(*shards, *args[4:], p0, q0))
+        dp = float((p - ref[0]).abs().max())
+        fin = ((int(ne), int(ref[2])), (int(npl), int(ref[3])))
+        gaps.append((n, dp, fin))
+        check(dp < 1e-3, f"sharded LOAM, {n} shards: |dp| {dp} m")
+        check(all(abs(a - b) <= LOAM_COUNT_TOL * b for a, b in fin),
+              f"sharded LOAM, {n} shards: final counts (sharded, "
+              f"unsharded) {fin}")
+    print(f"multidevice: LOAM {MULTI_LOAM[0]}+{MULTI_LOAM[1]} queries vs "
+          f"{MULTI_LOAM[2]}+{MULTI_LOAM[3]} map, first association "
+          f"(edges, planes) {first} on every mesh; sharded against "
+          f"unsharded (shards: max |dp| m, final (edges), (planes)): "
+          + "; ".join(f"{n}: {d:.2e}, {f[0]}, {f[1]}" for n, d, f in gaps)
+          + f"; gates equal first counts, 1e-3 m, final counts within "
+          f"{LOAM_COUNT_TOL:.0%}; k-NN launches {launches} [{card}]",
+          flush=True)
+    print_costs(f"LOAM ({outer} x {gn} iterations)", costs, card)
+
+    # the per-shard k-NN calls of the last mesh: each association's shards
+    # together equal one call on all their queries, to the bit (the kernel
+    # ranks a query alone, whatever its split plan); each call against the
+    # plain version
+    n = MESH_SHARDS[-1]
+    for g in range(0, len(calls), 2 * n):
+        for kind in (0, 1):
+            group = calls[g + kind:g + 2 * n:2]
+            q, r, m, k = torch.cat([c[0] for c in group]), *group[0][1:4]
+            idx, d2 = K.knn_topk_cuda(q, r, m, k)
+            check(torch.equal(idx, torch.cat([c[4][0] for c in group]))
+                  and torch.equal(d2, torch.cat([c[4][1] for c in group])),
+                  f"per-shard k-NN calls ({q.shape[0] // n}, {r.shape[0]}, "
+                  f"k={k}) differ from one call on all their queries")
+    max_err, exact, shard_ms = 0.0, 0, {}
+    for q, r, m, k, _ in calls:
+        idx_k, d2_k = K.knn_topk_cuda(q, r, m, k)
+        idx_p, d2_p = K.knn_topk_plain(q, r, m, k)
+        torch.cuda.synchronize()
+        same = torch.equal(idx_k, idx_p) and torch.equal(d2_k, d2_p)
+        exact += int(same)
+        if not same:
+            err, _ = compare_with_plain(torch, K, q, r, m, k,
+                                        f"per-shard LOAM call ({q.shape[0]}, "
+                                        f"{r.shape[0]}, k={k})")
+            max_err = max(max_err, err)
+        shape = (q.shape[0], r.shape[0], k)
+        if shape not in shard_ms:
+            shard_ms[shape] = (device_ms(
+                torch, lambda: K.knn_topk_cuda(q, r, m, k)), knn_bound_ms(
+                    *shape, int(m.sum())))
+    sm = K._sm_count(torch.device(dev))
+    print(f"multidevice: the {len(calls)} per-shard k-NN calls of the "
+          f"{n}-shard solve: each association's {n} shards equal one call "
+          f"on all their queries to the bit; against the plain version "
+          f"{exact} equal to the bit, the rest within phase 3's tolerance "
+          f"(max |d2 err| {max_err:.3g}); kernel on the device "
+          + "; ".join(f"{s}: {ms:.4f} ms (bound {b[0]:.5f}, {b[1]}; "
+                      f"{K.plan_splits(*s, sm)} slices)"
+                      for s, (ms, b) in shard_ms.items()) + f" [{card}]",
+          flush=True)
+    return launches, max_err, {str(s): ms for s, (ms, _) in
+                               shard_ms.items()}
+
+
+def phase_multi_pose_graph(torch, card, graph, p_gt):
+    """Edge-sharded pose-graph CG at N = 512, E = 2048."""
+    from mvil_fusion_torch.mapping import pose_graph as pg
+    from mvil_fusion_torch.parallel import mesh as M
+    from mvil_fusion_torch.parallel.sharded_pose_graph import \
+        solve_cg_sharded
+    g = pg.graph_from_numpy(graph, device="cuda:0")
+    iters, cg_iters = MULTI_PG_ITERS
+    stats = {}
+    ref, *unsharded = run_measured(torch, lambda: pg.solve_cg(
+        g, iters=iters, cg_iters=cg_iters, stats=stats))
+    costs, gaps = {"unsharded": unsharded}, []
+    for n in MESH_SHARDS:
+        mesh = M.make_mesh(devices=["cuda:0"] * n)
+        st = {}
+        out, *costs[f"{n} shards"] = run_measured(
+            torch, lambda: solve_cg_sharded(g, mesh, iters=iters,
+                                            cg_iters=cg_iters, stats=st))
+        dp = float((out.p - ref.p).abs().max())
+        gaps.append((n, dp))
+        check(dp < 1e-3 and st == stats, f"sharded pose graph, {n} shards: "
+              f"|dp| {dp} m, host counts {st} against {stats}")
+    live = len(p_gt)
+    err0 = np.linalg.norm(graph["p"][:live] - p_gt, axis=1).mean()
+    err1 = np.linalg.norm(ref.p.cpu().numpy()[:live] - p_gt, axis=1).mean()
+    check(err1 < err0, f"pose graph: mean error {err0} -> {err1}")
+    print(f"multidevice: pose-graph CG N={MULTI_PG[0]} E={MULTI_PG[1]} "
+          f"Z={MULTI_PG[2]} ({MULTI_PG[3]} nodes, {MULTI_PG[4]} edges), "
+          f"{iters} x {cg_iters} iterations: sharded against unsharded "
+          f"(shards: max |dp| m): " + "; ".join(
+              f"{n}: {d:.2e}" for n, d in gaps)
+          + f"; gate 1e-3 m and the same host syncs ({stats['syncs']}); "
+          f"mean error {err0:.4f} -> {err1:.4f} m [{card}]", flush=True)
+    print_costs(f"pose graph ({iters} x {cg_iters} iterations)", costs,
+                card)
+
+
+def run_processes(argvs, timeout=120):
+    """Each argv as a process of `python -m
+    mvil_fusion_torch.parallel.distributed`, all started together and
+    joined: [(exit code, output)].  Every process is stopped on return."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__)),
+         env.get("PYTHONPATH", "")])
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "mvil_fusion_torch.parallel.distributed",
+         *argv], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for argv in argvs]
+    out = []
+    try:
+        for p in procs:
+            try:
+                text, _ = p.communicate(timeout=timeout)
+                out.append((p.returncode, text))
+            except subprocess.TimeoutExpired:
+                out.append((None, "timed out"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+# how a torch build whose gloo cannot reduce CUDA tensors says so
+GLOO_REFUSES_CUDA = re.compile(
+    r"No backend type associated with device type cuda"
+    r"|(?:gloo|Gloo)[^\n]*(?:unsupported device|does not support CUDA"
+    r"|CUDA[^\n]* not supported)")
+
+
+def phase_multi_smoke(card):
+    """The allreduce smoke of parallel/distributed.py: one process over
+    NCCL with a 4-shard mesh of cuda:0, then two processes over gloo, each
+    with a 2-shard mesh of cuda:0 (NCCL refuses two ranks on one card)."""
+    t = time.perf_counter()
+    (rc, out), = run_processes([[
+        f"--coordinator=localhost:{free_port()}", "--num-processes=1",
+        "--process-id=0", "--device=cuda:0", "--local-shards=4",
+        "--backend=nccl"]])
+    check(rc == 0 and "4 global shards (1 processes, backend nccl)" in out
+          and "allreduce smoke over 4 shards OK" in out,
+          f"one-process NCCL smoke (exit {rc}):\n{out[-2000:]}")
+    one_s = time.perf_counter() - t
+
+    def two(device):
+        port = free_port()
+        return run_processes([[
+            f"--coordinator=localhost:{port}", "--num-processes=2",
+            f"--process-id={k}", f"--device={device}", "--local-shards=2",
+            "--backend=gloo"] for k in range(2)])
+
+    t = time.perf_counter()
+    runs, where = two("cuda:0"), "CUDA tensors on cuda:0"
+    ok = all(rc == 0 and "4 global shards (2 processes, backend gloo)"
+             in out and "allreduce smoke over 4 shards OK" in out
+             for rc, out in runs)
+    why = ""
+    if not ok:
+        # only gloo's refusal of CUDA tensors sends the check to the CPU;
+        # a wrong sum, a crash or a timeout on the card fails the phase
+        refusal = GLOO_REFUSES_CUDA.search("\n".join(o for _, o in runs))
+        check(refusal is not None, "two-process gloo smoke on cuda:0: "
+              + " | ".join(f"exit {rc}: {out[-1000:]}" for rc, out in runs))
+        why = refusal.group(0)
+        runs, where = two("cpu"), "CPU tensors"
+        ok = all(rc == 0 and "allreduce smoke over 4 shards OK" in out
+                 for rc, out in runs)
+    check(ok, "two-process gloo smoke: " + " | ".join(
+        out[-1000:] for _, out in runs))
+    print(f"multidevice: allreduce smoke: 1 process, NCCL, 4 shards of "
+          f"cuda:0: ok ({one_s:.1f} s); 2 processes, gloo, 2 shards of "
+          f"cuda:0 each, 4 global: ok on {where} "
+          f"({time.perf_counter() - t:.1f} s)"
+          + (f"; gloo refused CUDA tensors ({why}), so this check ran on "
+             f"CPU tensors" if why else "") + f" [{card}]", flush=True)
+
+
+def phase_multidevice(torch, card, K):
+    """Phase 15; returns phase_multi_loam's (launches, max error, per-shard
+    kernel ms)."""
+    t0 = time.perf_counter()
+    tgt, loam, graph, p_gt = multichip_data()
+    parts = [("BA", lambda: phase_multi_ba(torch, card)),
+             ("VGICP", lambda: phase_multi_vgicp(torch, card, tgt)),
+             ("LOAM", lambda: phase_multi_loam(torch, card, K, loam)),
+             ("pose graph", lambda: phase_multi_pose_graph(torch, card, graph,
+                                                           p_gt)),
+             ("smokes", lambda: phase_multi_smoke(card))]
+    took, out = [], {}
+    for name, run in parts:
+        t = time.perf_counter()
+        out[name] = run()
+        took.append(f"{name} {time.perf_counter() - t:.1f} s")
+    print(f"multidevice: phase 15 took {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(took) + ")", flush=True)
+    return out["LOAM"]
+
+
 def main() -> int:
     import torch
     check(torch.cuda.is_available(),
           "no CUDA device (torch.cuda.is_available() is False)")
+    t_start = time.perf_counter()
 
     # 1. device
     card = card_line()
@@ -2616,25 +3093,43 @@ def main() -> int:
     check(launches == 6 * N_SWEEPS,
           f"{launches} knn launches, expected {6 * N_SWEEPS}")
 
+    times = [("1-4", time.perf_counter() - t_start)]
+
+    def stamp(phases):
+        times.append((phases, time.perf_counter() - t_start
+                       - sum(t for _, t in times)))
+
     # 5-7. the global-mapping stage on the card
     phase_chained(torch, subs, sweeps, card)
     phase_solver(torch, phase_loop(torch, card), card)
+
+    stamp("5-7")
 
     # 8-9. the sensor front ends of mono VIO on the card
     world, view = phase_tracker(torch, card)
     phase_imu(torch, world, view, card)
 
+    stamp("8-9")
+
     # 10. the window solve of mono VIO on the card
     phase_window(torch, card)
+
+    stamp("10")
 
     # 11. mono VIO end to end on the card
     vio = phase_vio(torch, card)
 
+    stamp("11")
+
     # 12. VIL odometry on the card
     phase_vil(torch, card)
 
+    stamp("12")
+
     # 13. the whole system on the card
     sys_launches, sys13, frames13, sweeps13 = phase_system(torch, card)
+
+    stamp("13")
 
     # 14. the offline runner, the stream hand-offs and checkpoint/resume
     t14 = time.perf_counter()
@@ -2643,6 +3138,14 @@ def main() -> int:
     phase_checkpoint(torch, card, vio)
     print(f"pipeline: phase 14 took {time.perf_counter() - t14:.1f} s",
           flush=True)
+
+    stamp("14")
+
+    # 15. the sharded solvers and the allreduce smoke on meshes of cuda:0
+    launches15, err15, shard_ms15 = phase_multidevice(torch, card, K)
+    stamp("15")
+    print("time: " + ", ".join(f"phases {p} {t:.1f} s" for p, t in times)
+          + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "knn_topk", "route": "cuda",
@@ -2653,7 +3156,10 @@ def main() -> int:
         "bound_ms": main_bound_ms, "bound_by": main_bound_by,
         "library_ms": None, "edge_ms": path[EDGE_SHAPE][0],
         "path_data_ms": path_ms, "slice_launches": launches,
-        "system_launches": sys_launches}]}),
+        "system_launches": sys_launches,
+        "multidevice_launches": launches15,
+        "multidevice_max_abs_err": err15,
+        "multidevice_shard_ms": shard_ms15}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

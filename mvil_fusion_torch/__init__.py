@@ -8,3 +8,16 @@ it needs.
 """
 
 __version__ = "0.1.0"
+
+from mvil_fusion_torch.config import (  # noqa: F401,E402
+    DEFAULT_CONFIG,
+    CameraConfig,
+    EstimatorConfig,
+    GlobalMappingConfig,
+    ImuConfig,
+    LidarConfig,
+    LocalMappingConfig,
+    ParallelConfig,
+    SystemConfig,
+    TrackerConfig,
+)

@@ -240,6 +240,17 @@ class GlobalMappingConfig:
 
 
 @dataclass(frozen=True)
+class ParallelConfig:
+    """Mesh layout of the sharded solvers (no reference analog: the
+    reference runs ROS pub/sub on one host; SURVEY.md §2.6).
+    `parallel/mesh.py::mesh_from_config` builds a mesh of
+    ``mesh_shape[0]`` shards named ``mesh_axes[0]``."""
+
+    mesh_shape: Tuple[int, ...] = (1,)
+    mesh_axes: Tuple[str, ...] = ("kf",)
+
+
+@dataclass(frozen=True)
 class SystemConfig:
     camera: CameraConfig = field(default_factory=CameraConfig)
     tracker: TrackerConfig = field(default_factory=TrackerConfig)
@@ -250,13 +261,13 @@ class SystemConfig:
         default_factory=LocalMappingConfig)
     global_mapping: GlobalMappingConfig = field(
         default_factory=GlobalMappingConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
 
     @staticmethod
     def from_dict(d: dict) -> "SystemConfig":
         """A configuration from a dict as the reference's `to_dict` gives
         it.  Raises KeyError for an unknown key, and for a left-out field
-        (or a key of a left-out section) at another value than the
-        reference's default."""
+        at another value than the reference's default."""
         def build(cls, sub: dict):
             names = {f.name: f for f in dataclasses.fields(cls)}
             kwargs = {}
@@ -296,13 +307,13 @@ _CONFIG_CLASSES: dict[str, Any] = {
     "LidarConfig": LidarConfig,
     "LocalMappingConfig": LocalMappingConfig,
     "GlobalMappingConfig": GlobalMappingConfig,
+    "ParallelConfig": ParallelConfig,
 }
 
 # What the port leaves out of the reference's configuration, with the
 # reference's defaults: fields that no ported code reads (the JAX
 # pipeline's upload pool, XLA dtypes, static capacities and LOAM extraction
-# constants the port fixes in code), and the `parallel` section until the
-# multi-device slice.
+# constants the port fixes in code).
 LEFT_OUT: dict[str, dict[str, Any]] = {
     "TrackerConfig": {"border": 1, "upload_workers": 2},
     "EstimatorConfig": {"angle_vi": 30.0, "max_obs_per_feature": 7,
@@ -319,24 +330,18 @@ LEFT_OUT: dict[str, dict[str, Any]] = {
         "n_subregions": 8, "curvature_threshold": 0.1,
         "max_corner_points": 8192, "max_surf_points": 16384,
         "knn_edge": 5, "knn_surf": 10},
-    "SystemConfig": {"parallel": {
-        "mesh_shape": (1,), "mesh_axes": ("kf",), "shard_features": True,
-        "shard_map_blocks": True}},
+    # what the sharded solvers shard is fixed by each solver
+    "ParallelConfig": {"shard_features": True, "shard_map_blocks": True},
 }
 
 
 def _check_left_out(name: str, value, default) -> None:
-    """Raise KeyError unless a left-out field (or every key of a left-out
-    section) holds the reference's default."""
-    if isinstance(default, dict):
-        if not isinstance(value, dict):
-            raise KeyError(f"config key {name} must be a section")
-        for k, v in value.items():
-            if k not in default:
-                raise KeyError(f"unknown config key {name}.{k}")
-            _check_left_out(f"{name}.{k}", v, default[k])
-        return
+    """Raise KeyError unless a left-out field holds the reference's
+    default."""
     if _freeze(value) != default:
         raise KeyError(f"config key {name} = {value!r}: the port leaves it "
                        f"out and takes only the reference's default "
                        f"{default!r}")
+
+
+DEFAULT_CONFIG = SystemConfig()

@@ -26,7 +26,7 @@ What differs from the reference's XLA program, by design:
 from __future__ import annotations
 
 import functools
-from typing import Mapping, NamedTuple
+from typing import Callable, Mapping, NamedTuple, Sequence
 
 import torch
 
@@ -35,6 +35,8 @@ from mvil_fusion_torch.estimator import state as st
 from mvil_fusion_torch.ops import preintegration as pre
 from mvil_fusion_torch.utils.device import resolve_device
 from mvil_fusion_torch.utils.precision import full_precision
+
+ANCHOR_WEIGHT = 1e3     # the gauge anchor's weight
 
 
 class Assembled(NamedTuple):
@@ -127,50 +129,88 @@ def _landmark_blocks(vs: fac.VisionSystem, F: int, W: int):
     return H_pl, H_ll, g_l
 
 
-@full_precision
-def assemble(s: st.WindowState, prob: BAProblem, focal: float,
-             anchor_weight: float = 1e3) -> Assembled:
-    W = s.window
-    F = s.num_features
-    D = st.pose_dim(W)
+class Landmarks(NamedTuple):
+    """One block's landmark side of the assembled system, its free
+    landmarks only (a held one has H_ll 1 and zero H_pl, g_l)."""
 
-    vs = fac.vision_system(s, prob.feats, focal)
+    H_pl: torch.Tensor      # (D, F_k)
+    H_ll: torch.Tensor      # (F_k,)
+    g_l: torch.Tensor       # (F_k,)
+    lam_free: torch.Tensor  # (F_k,) bool
+
+
+def _landmarks(vs: fac.VisionSystem, feats: st.Features, W: int
+               ) -> Landmarks:
+    H_pl, H_ll, g_l = _landmark_blocks(vs, feats.valid.shape[0], W)
+    lam_free = _lam_free_mask(feats)
+    return Landmarks(torch.where(lam_free[None, :], H_pl, 0.0),
+                     torch.where(lam_free, H_ll, 1.0),
+                     torch.where(lam_free, g_l, 0.0), lam_free)
+
+
+def _dense_system(s: st.WindowState, prob: BAProblem,
+                  anchor_weight: float = ANCHOR_WEIGHT):
+    """(J, r, costs) of the dense factors: IMU, prior, anchor, extras;
+    `costs` their four costs in that order."""
     imus = fac.imu_system(s, prob.preints, prob.interval_mask, prob.gravity)
     prs = fac.prior_system(prob.prior, s)
     anc = fac.anchor_system(s, prob.anchor_ref, anchor_weight,
                             ~prob.prior.valid)
     extra_r = _extra_residual(s, prob)
+    J = torch.cat([imus.J, prs.J, anc.J, prob.extra_J], dim=0)
+    r = torch.cat([imus.r, prs.r, anc.r, extra_r])
+    return J, r, (imus.cost, prs.cost, anc.cost,
+                  0.5 * torch.sum(extra_r * extra_r))
 
-    J = torch.cat([imus.J, prs.J, anc.J, prob.extra_J,
-                   vs.Jg.reshape(-1, D)], dim=0)
-    r = torch.cat([imus.r, prs.r, anc.r, extra_r, vs.r.reshape(-1)])
-    H_pp = J.T @ J
-    g_p = -(J.T @ r)
 
-    H_pl, H_ll, g_l = _landmark_blocks(vs, F, W)
-    lam_free = _lam_free_mask(prob.feats)
-    H_ll = torch.where(lam_free, H_ll, 1.0)
-    H_pl = torch.where(lam_free[None, :], H_pl, 0.0)
-    g_l = torch.where(lam_free, g_l, 0.0)
+def _dense_costs(s: st.WindowState, prob: BAProblem,
+                 anchor_weight: float = ANCHOR_WEIGHT):
+    """`_dense_system`'s costs, with no Jacobian computed."""
+    extra_r = _extra_residual(s, prob)
+    return (fac.imu_cost(s, prob.preints, prob.interval_mask, prob.gravity),
+            fac.prior_cost(prob.prior, s),
+            fac.anchor_cost(s, prob.anchor_ref, anchor_weight,
+                            ~prob.prior.valid),
+            0.5 * torch.sum(extra_r * extra_r))
 
-    extra_cost = 0.5 * torch.sum(extra_r * extra_r)
-    cost = vs.cost + imus.cost + prs.cost + anc.cost + extra_cost
-    return Assembled(H_pp, H_pl, H_ll, g_p, g_l, cost, lam_free)
+
+def _plus(total: torch.Tensor, costs) -> torch.Tensor:
+    """`total` + each of `costs`, in order (the unsharded sum's order)."""
+    for c in costs:
+        total = total + c
+    return total
+
+
+def _vision_block(s: st.WindowState, feats: st.Features, focal: float,
+                  dense_J=None, dense_r=None):
+    """(H, g, cost, Landmarks) of one block of vision factors: the
+    pose-side JᵀJ and −Jᵀr of its rows, after `dense_J`'s and `dense_r`'s
+    where given (one product over all rows, as the unsharded system
+    forms it), its vision cost and its landmark blocks."""
+    vs = fac.vision_system(s, feats, focal)
+    J = vs.Jg.reshape(-1, st.pose_dim(s.window))
+    r = vs.r.reshape(-1)
+    if dense_J is not None:
+        J, r = torch.cat([dense_J, J], dim=0), torch.cat([dense_r, r])
+    return J.T @ J, -(J.T @ r), vs.cost, _landmarks(vs, feats, s.window)
+
+
+@full_precision
+def assemble(s: st.WindowState, prob: BAProblem, focal: float,
+             anchor_weight: float = ANCHOR_WEIGHT) -> Assembled:
+    J, r, costs = _dense_system(s, prob, anchor_weight)
+    H_pp, g_p, c_v, lm = _vision_block(s, prob.feats, focal, J, r)
+    return Assembled(H_pp, lm.H_pl, lm.H_ll, g_p, lm.g_l,
+                     _plus(c_v, costs), lm.lam_free)
 
 
 @full_precision
 def evaluate_cost(s: st.WindowState, prob: BAProblem, focal: float,
-                  anchor_weight: float = 1e3) -> torch.Tensor:
+                  anchor_weight: float = ANCHOR_WEIGHT) -> torch.Tensor:
     """Residual-only total robust cost: the same sum as `assemble`'s cost,
     with no Jacobian computed."""
-    extra_r = _extra_residual(s, prob)
-    return (fac.vision_cost(s, prob.feats, focal)
-            + fac.imu_cost(s, prob.preints, prob.interval_mask,
-                           prob.gravity)
-            + fac.prior_cost(prob.prior, s)
-            + fac.anchor_cost(s, prob.anchor_ref, anchor_weight,
-                              ~prob.prior.valid)
-            + 0.5 * torch.sum(extra_r * extra_r))
+    return _plus(fac.vision_cost(s, prob.feats, focal),
+                 _dense_costs(s, prob, anchor_weight))
 
 
 class SolveResult(NamedTuple):
@@ -180,6 +220,25 @@ class SolveResult(NamedTuple):
     n_accepted: torch.Tensor
 
 
+def _schur_part(lm: Landmarks, mu: torch.Tensor, jitter: float):
+    """(S_part (D,D), rhs_part (D,), inv_ll (F_k,)): one block's damped
+    landmarks reduced out of the camera system."""
+    inv_ll = 1.0 / (lm.H_ll * (1.0 + mu) + jitter)
+    return ((lm.H_pl * inv_ll[None, :]) @ lm.H_pl.T,
+            lm.H_pl @ (lm.g_l * inv_ll), inv_ll)
+
+
+def _landmark_delta(lm: Landmarks, inv_ll: torch.Tensor,
+                    dx: torch.Tensor) -> torch.Tensor:
+    """One block's landmark step back-substituted from the pose step."""
+    dl = (lm.g_l - lm.H_pl.T @ dx) * inv_ll
+    return torch.where(lm.lam_free, dl, 0.0)
+
+
+def _damped(H_pp: torch.Tensor, mu: torch.Tensor, jitter: float):
+    return H_pp + torch.diag(mu * torch.diagonal(H_pp) + jitter)
+
+
 def lm_step(a: Assembled, mu: torch.Tensor, fix_mask: torch.Tensor,
             jitter: float = 1e-6):
     """One damped Schur-complement step: (dx (D,), dl (F,), factored ()).
@@ -187,13 +246,21 @@ def lm_step(a: Assembled, mu: torch.Tensor, fix_mask: torch.Tensor,
     `factored` is False where the Cholesky factorization of the reduced
     system failed (not positive definite); the step must then be rejected.
     """
-    D = a.H_pp.shape[0]
-    eye = torch.eye(D, dtype=a.H_pp.dtype, device=a.H_pp.device)
-    diag = torch.diagonal(a.H_pp)
-    Hd = a.H_pp + torch.diag(mu * diag + jitter)
-    inv_ll = 1.0 / (a.H_ll * (1.0 + mu) + jitter)
-    S = Hd - (a.H_pl * inv_ll[None, :]) @ a.H_pl.T
-    rhs = a.g_p - a.H_pl @ (a.g_l * inv_ll)
+    lm = Landmarks(a.H_pl, a.H_ll, a.g_l, a.lam_free)
+    S_l, rhs_l, inv_ll = _schur_part(lm, mu, jitter)
+    dx, factored = solve_reduced(_damped(a.H_pp, mu, jitter) - S_l,
+                                 a.g_p - rhs_l, fix_mask, jitter)
+    return dx, _landmark_delta(lm, inv_ll, dx), factored
+
+
+def solve_reduced(S: torch.Tensor, rhs: torch.Tensor,
+                  fix_mask: torch.Tensor, jitter: float = 1e-6):
+    """(dx (D,), factored ()) of the reduced camera system S dx = rhs by
+    Cholesky, with the frozen dims held; `factored` is False where the
+    factorization failed (``cholesky_ex``'s `info`, in place of the
+    reference's NaN factor)."""
+    D = S.shape[0]
+    eye = torch.eye(D, dtype=S.dtype, device=S.device)
     # frozen dims (extrinsics/td when not estimated — the reference's
     # SetParameterBlockConstant): identity row/col, zero rhs → δ = 0
     fm = fix_mask
@@ -203,12 +270,9 @@ def lm_step(a: Assembled, mu: torch.Tensor, fix_mask: torch.Tensor,
     L, info = torch.linalg.cholesky_ex(S + jitter * eye)
     y = torch.linalg.solve_triangular(L, rhs[:, None], upper=False)
     dx = torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
-    dl = (a.g_l - a.H_pl.T @ dx) * inv_ll
-    dl = torch.where(a.lam_free, dl, 0.0)
-    return dx, dl, info == 0
+    return dx, info == 0
 
 
-@full_precision
 def solve(s0: st.WindowState, prob: BAProblem, focal: float,
           iters: int = 8, mu0: float = 1e-4,
           jitter: float = 1e-6) -> SolveResult:
@@ -216,27 +280,104 @@ def solve(s0: st.WindowState, prob: BAProblem, focal: float,
 
     Fixed iteration count; rejected steps are no-ops via `where`, damping
     adapts multiplicatively — the functional equivalent of the reference's
-    ≤8-iteration DOGLEG budget (estimator.cpp:1400-1414).
+    ≤8-iteration DOGLEG budget (estimator.cpp:1400-1414).  One block of
+    `solve_blocks`.
     """
-    s = s0
-    mu = torch.full((), mu0, dtype=s0.p.dtype, device=s0.p.device)
-    n_acc = torch.zeros((), dtype=torch.int32, device=s0.p.device)
+    res = solve_blocks(s0._replace(inv_depth=s0.inv_depth[:0]),
+                       [s0.inv_depth], prob._replace(feats=None),
+                       [prob.feats], focal, lambda parts: parts[0], iters,
+                       mu0, jitter)
+    pose, (inv_depth,) = res.state
+    return res._replace(state=pose._replace(inv_depth=inv_depth))
+
+
+def to_device(tree, dev: torch.device):
+    """A (nested) NamedTuple of tensors on `dev`; no copy where a tensor
+    is there already."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev, non_blocking=True)
+    if tree is None:
+        return None
+    return type(tree)(*(to_device(x, dev) for x in tree))
+
+
+@full_precision
+def solve_blocks(pose: st.WindowState, inv_depth: Sequence[torch.Tensor],
+                 dense: BAProblem, feats: Sequence[st.Features],
+                 focal: float, reduce: Callable[[list], torch.Tensor],
+                 iters: int = 8, mu0: float = 1e-4, jitter: float = 1e-6,
+                 dense_rows: bool = True) -> SolveResult:
+    """`solve` with the landmarks split into blocks: `pose` the window's
+    pose side (its `inv_depth` empty) and `dense` the problem without its
+    feature table, on one device; `inv_depth` and `feats` the blocks of
+    landmarks and their features, each block on its own device, the
+    first on the pose's.  Each block assembles its vision factors and
+    reduces its landmarks out of the camera system; its partials go
+    through ``reduce(parts)``, which returns their sum on the pose's
+    device, where the (D, D) solve runs once.  The dense factors are
+    linearized once, and their rows join the first block's JᵀJ where
+    `dense_rows` (False in every process of a mesh but the one that holds
+    the first global shard, whose sum carries them to the others).  The
+    result's `state` is (pose, the tuple of inverse-depth blocks).  One
+    block with ``reduce = parts[0]`` is `solve`, to the bit;
+    `parallel/sharded_ba.py` gives one block per shard and the mesh's
+    sum.  Nothing waits for the card."""
+
+    def views(pose, inv):
+        """Each block's WindowState: the pose side on the block's device
+        (copied once per device) and its landmarks."""
+        on: dict[torch.device, st.WindowState] = {}
+        out = []
+        for x in inv:
+            if x.device not in on:
+                on[x.device] = to_device(pose, x.device)
+            out.append(on[x.device]._replace(inv_depth=x))
+        return out
+
+    def cost_at(pose, inv):
+        return _plus(reduce([fac.vision_cost(v, f, focal)
+                             for v, f in zip(views(pose, inv), feats)]),
+                     _dense_costs(pose, dense))
+
+    inv = list(inv_depth)
+    dev = pose.p.device
+    mu = torch.full((), mu0, dtype=pose.p.dtype, device=dev)
+    n_acc = torch.zeros((), dtype=torch.int32, device=dev)
     cost0 = None
     for _ in range(iters):
-        a = assemble(s, prob, focal)
+        J, r, costs = _dense_system(pose, dense)
+        if not dense_rows:
+            J = r = None
+        H, g, c_v, lms = zip(*(
+            _vision_block(v, f, focal, *((J, r) if k == 0 else ()))
+            for k, (v, f) in enumerate(zip(views(pose, inv), feats))))
+        H_pp, g_p = reduce(list(H)), reduce(list(g))
+        cost = _plus(reduce(list(c_v)), costs)
         if cost0 is None:
-            cost0 = a.cost
-        dx, dl, factored = lm_step(a, mu, prob.fix_mask, jitter)
-        s_try = st.apply_delta(s, dx, dl)
-        cost_try = evaluate_cost(s_try, prob, focal)
-        ok = factored & torch.isfinite(cost_try) & (cost_try < a.cost)
-        s = st.WindowState(*(torch.where(ok, new, old)
-                             for new, old in zip(s_try, s)))
+            cost0 = cost
+
+        # damped Schur step: each block reduces its own landmarks out
+        S_l, rhs_l, inv_ll = zip(*(_schur_part(
+            lm, mu.to(lm.H_ll.device, non_blocking=True), jitter)
+            for lm in lms))
+        dx, factored = solve_reduced(
+            _damped(H_pp, mu, jitter) - reduce(list(S_l)),
+            g_p - reduce(list(rhs_l)), dense.fix_mask, jitter)
+        pose_try = st.apply_delta(pose, dx)
+        inv_try = [x + _landmark_delta(lm, il,
+                                       dx.to(x.device, non_blocking=True))
+                   for x, lm, il in zip(inv, lms, inv_ll)]
+        cost_try = cost_at(pose_try, inv_try)
+        ok = factored & torch.isfinite(cost_try) & (cost_try < cost)
+        pose = st.WindowState(*(torch.where(ok, new, old)
+                                for new, old in zip(pose_try, pose)))
+        inv = [torch.where(ok.to(x.device, non_blocking=True), new, x)
+               for new, x in zip(inv_try, inv)]
         mu = torch.where(ok, (mu * 0.4).clamp_min(1e-6),
                          (mu * 6.0).clamp_max(1e3))
         n_acc = n_acc + ok.to(torch.int32)
-    return SolveResult(state=s, cost0=cost0,
-                       cost1=evaluate_cost(s, prob, focal), n_accepted=n_acc)
+    return SolveResult(state=(pose, tuple(inv)), cost0=cost0,
+                       cost1=cost_at(pose, inv), n_accepted=n_acc)
 
 
 # ---------------------------------------------------------------------------

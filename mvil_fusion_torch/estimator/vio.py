@@ -42,7 +42,7 @@ from mvil_fusion_torch.estimator import state as st
 from mvil_fusion_torch.ops import preintegration as pre
 from mvil_fusion_torch.ops import triangulate as tri
 from mvil_fusion_torch.utils import lie
-from mvil_fusion_torch.utils.device import resolve_device
+from mvil_fusion_torch.utils.device import resolve_device, work_event
 from mvil_fusion_torch.utils.precision import full_precision, set_fp32_policy
 
 # host_pack layout: metrics(5) cost(1) p(3) q(4) v(3) tic(3) qic(4) td(1)
@@ -389,6 +389,24 @@ class VIOEstimator:
     def _up(self, a, dtype=torch.float32) -> torch.Tensor:
         """A host array on the estimator's device."""
         return torch.as_tensor(np.asarray(a)).to(self.device, dtype)
+
+    @property
+    def state(self) -> st.WindowState:
+        return self._state_ready[0]
+
+    @state.setter
+    def state(self, s: st.WindowState) -> None:
+        # one attribute, so that another thread reads a state together
+        # with the event recorded after it was written
+        self._state_ready = (s, work_event(s.p.device))
+
+    @property
+    def state_ready(self):
+        """(state, event): the window state and, on the card, an event
+        recorded on the writer's stream after its last write (None on the
+        CPU).  A reader on another stream waits for the event before it
+        reads the state."""
+        return self._state_ready
 
     # ------------------------------------------------------------- LiDAR
 

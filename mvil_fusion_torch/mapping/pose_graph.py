@@ -16,7 +16,7 @@ fp32 (``utils/precision.set_fp32_policy``: no TF32).
 
 from __future__ import annotations
 
-from typing import Mapping, NamedTuple, Optional
+from typing import Callable, Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -240,64 +240,110 @@ def solve_cg(g: PoseGraph, iters: int = 10, cg_iters: int = 64,
     (those reads) and "lm_queued", "cg_queued" (iterations queued; with
     `check_every=1` these are the iterations that changed the carry).
     """
+    return solve_cg_blocks(g, (g,), lambda parts: parts[0], iters,
+                           cg_iters, anchor_weight, mu0, jitter, cg_tol,
+                           xtol, check_every, stats)
+
+
+def solve_cg_blocks(g: PoseGraph, blocks: Sequence[PoseGraph],
+                    reduce: Callable[[list], torch.Tensor],
+                    iters: int = 10, cg_iters: int = 64,
+                    anchor_weight: float = 1e4, mu0: float = 1e-6,
+                    jitter: float = 1e-6, cg_tol: float = 1e-12,
+                    xtol: float = 1e-8, check_every: int = 16,
+                    stats: Optional[dict] = None) -> PoseGraph:
+    """`solve_cg` with the factor tables of `g` split into `blocks`: each
+    block holds some of the between factors and z priors (its own
+    e_* and z_* tables, on its own device); the nodes are `g`'s.  Each
+    block's per-node sums (the rhs, the block diagonal, every matvec's
+    product before the damped diagonal, the costs) go through
+    ``reduce(parts)``, which returns their sum on `g`'s device; the rest
+    runs once, there.  One block with ``reduce = parts[0]`` is
+    `solve_cg`; `parallel/sharded_pose_graph.py` gives one block per
+    shard and the mesh's sum."""
     N = g.p.shape[0]
     dtype, dev = g.p.dtype, g.p.device
-    zw = g.z_w * g.z_mask.to(dtype)
-    zw2 = zw * zw
+    zws = [b.z_w * b.z_mask.to(dtype) for b in blocks]
+    zw2s = [zw * zw for zw in zws]
     diag_extra = ((~g.node_mask).to(dtype) * 1e6)[:, None]   # (N,1)
     diag_extra[0] += anchor_weight
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     syncs = lm_queued = cg_queued = 0
 
-    def segment_sum(vi, vj):
+    def on(x, b):
+        """x on block b's device (x itself on g's device)."""
+        return x.to(b.e_i.device, non_blocking=True)
+
+    def segment_sum(b, vi, vj):
         """Per-edge (E, ...) values of each endpoint summed per node."""
         out = vi.new_zeros((N,) + vi.shape[1:])
-        return out.index_add_(0, g.e_i, vi).index_add_(0, g.e_j, vj)
+        return out.index_add_(0, b.e_i, vi).index_add_(0, b.e_j, vj)
 
-    def add_z(y, vz):
+    def add_z(b, y, vz):
         """Add per-prior values (Z,) into the z component of (N,6) y."""
-        y[:, 2] += vz.new_zeros((N,)).index_add_(0, g.z_node, vz)
+        y[:, 2] += vz.new_zeros((N,)).index_add_(0, b.z_node, vz)
         return y
 
     def cost_of(p, q):
-        return _cost(edge_system(g, p, q)[0], _z_residual(g, p, zw))
+        return reduce([_cost(edge_system(b, on(p, b), on(q, b))[0],
+                             _z_residual(b, on(p, b), zw))
+                       for b, zw in zip(blocks, zws)])
 
     p, q = g.p, g.q
     mu = torch.full((), mu0, dtype=dtype, device=dev)
     conv = torch.zeros((), dtype=torch.bool, device=dev)
     stop = False
     for _ in range(iters):
-        r_e, J_e = edge_system(g, p, q)
-        Ji, Jj = J_e[:, :, 0:6], J_e[:, :, 6:12]
-        JT = J_e.transpose(-1, -2)                           # (E,12,6)
-        r_z = _z_residual(g, p, zw)
+        systems = []   # per block: (r_e, J_e, Jᵀ, r_z)
+        for b, zw in zip(blocks, zws):
+            r_e, J_e = edge_system(b, on(p, b), on(q, b))
+            systems.append((r_e, J_e, J_e.transpose(-1, -2),
+                            _z_residual(b, on(p, b), zw)))
 
-        # rhs b = −Jᵀr, summed per node (N,6)
-        Jtr = (JT @ r_e[:, :, None])[:, :, 0]                # (E,12)
-        b = add_z(-segment_sum(Jtr[:, 0:6], Jtr[:, 6:12]), -(zw * r_z))
+        def rhs(b, zw, r_e, JT, r_z):
+            """b = −Jᵀr, summed per node (N,6)."""
+            Jtr = (JT @ r_e[:, :, None])[:, :, 0]            # (E,12)
+            return add_z(b, -segment_sum(b, Jtr[:, 0:6], Jtr[:, 6:12]),
+                         -(zw * r_z))
 
-        # block diagonal of H (N,6,6) for damping + preconditioner
-        Dblk = segment_sum(Ji.transpose(-1, -2) @ Ji,
-                           Jj.transpose(-1, -2) @ Jj)
-        Dblk[:, 2, 2] += zw.new_zeros((N,)).index_add_(0, g.z_node, zw2)
+        def diagonal(b, zw2, J_e):
+            """The block diagonal of H (N,6,6)."""
+            Ji, Jj = J_e[:, :, 0:6], J_e[:, :, 6:12]
+            D = segment_sum(b, Ji.transpose(-1, -2) @ Ji,
+                            Jj.transpose(-1, -2) @ Jj)
+            D[:, 2, 2] += zw2.new_zeros((N,)).index_add_(0, b.z_node, zw2)
+            return D
+
+        rhs_b = reduce([rhs(b, zw, r_e, JT, r_z) for b, zw,
+                        (r_e, _, JT, r_z) in zip(blocks, zws, systems)])
+        # block diagonal of H for damping + preconditioner
+        Dblk = reduce([diagonal(b, zw2, J_e) for b, zw2, (_, J_e, _, _)
+                       in zip(blocks, zw2s, systems)])
         dh = torch.diagonal(Dblk, dim1=-2, dim2=-1)          # diag of H
         damp = mu * dh + jitter + diag_extra                 # (N,6)
         Minv = torch.linalg.inv_ex(
             Dblk + torch.diag_embed(damp) + 1e-8 * eye6).inverse
 
-        def matvec(x):                                       # x (N,6)
-            xe = torch.cat([x[g.e_i], x[g.e_j]], dim=-1)     # (E,12)
+        def product(b, zw2, J_e, JT, x):
+            """Jᵀ J x over block b's factors, summed per node (N,6)."""
+            xe = torch.cat([x[b.e_i], x[b.e_j]], dim=-1)     # (E,12)
             t = J_e @ xe[:, :, None]                         # (E,6,1)
             y12 = (JT @ t)[:, :, 0]                          # (E,12)
-            y = segment_sum(y12[:, 0:6], y12[:, 6:12])
-            return add_z(y, zw2 * x[g.z_node, 2]) + damp * x
+            y = segment_sum(b, y12[:, 0:6], y12[:, 6:12])
+            return add_z(b, y, zw2 * x[b.z_node, 2])
+
+        def matvec(x):                                       # x (N,6)
+            # the damped diagonal is added once, after the blocks' sum
+            return reduce([product(b, zw2, J_e, JT, on(x, b))
+                           for b, zw2, (_, J_e, JT, _)
+                           in zip(blocks, zw2s, systems)]) + damp * x
 
         def pc(v):
             return (Minv @ v[:, :, None])[:, :, 0]
 
         # preconditioned CG from x = 0, so r₀ = b
         x = torch.zeros((N, 6), dtype=dtype, device=dev)
-        r = b
+        r = rhs_b
         z_ = pc(r)
         pdir = z_
         rz0 = torch.sum(r * z_)
@@ -326,7 +372,7 @@ def solve_cg(g: PoseGraph, iters: int = 10, cg_iters: int = 64,
             break
         lm_queued += 1
 
-        c0 = _cost(r_e, r_z)
+        c0 = reduce([_cost(r_e, r_z) for r_e, _, _, r_z in systems])
         p_try = p + x[:, 0:3]
         q_try = lie.quat_boxplus(q, x[:, 3:6])
         ok, mu_new = _lm_accept(mu, c0, cost_of(p_try, q_try))

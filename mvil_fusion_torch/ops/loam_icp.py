@@ -11,7 +11,7 @@ the device without a sync.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
@@ -118,10 +118,13 @@ def find_correspondences(corner_src, corner_mask, surf_src, surf_mask,
     snbr = surf_map[sidx]                                    # (Np,k,3)
     # LSQ plane: N·x = -1 (A-LOAM formulation), trace-relative ridge for
     # f32 robustness on near-collinear clusters
-    ones = -torch.ones((snbr.shape[0], k_surf, 1), dtype=dtype,
-                       device=snbr.device)
+    # Aᵀb with b = −1 is minus the neighbours' sum, and n·x below is summed
+    # per row: elementwise forms, so that a query's fit does not depend on
+    # how many others share its batch (the card's batched matrix-vector
+    # product rounds by batch size: a shard of the queries then fitted
+    # other planes than the whole did)
     AtA = torch.einsum("nki,nkj->nij", snbr, snbr)
-    Atb = torch.einsum("nki,nkl->nil", snbr, ones)[..., 0]
+    Atb = -torch.sum(snbr, dim=1)
     tr = torch.diagonal(AtA, dim1=-2, dim2=-1).sum(-1)[:, None, None]
     ridge = (1e-5 * tr + 1e-6) * eye
     n_raw = _solve3x3(AtA + ridge, Atb)
@@ -133,7 +136,7 @@ def find_correspondences(corner_src, corner_mask, surf_src, surf_mask,
     d_plane = torch.where(torch.isfinite(d_plane), d_plane, 0.0)
     # fit validity: all neighbors within 0.2 of the plane AND the cluster is
     # genuinely planar, not a single scan-line
-    dist_nb = torch.abs(torch.einsum("nki,ni->nk", snbr, n_unit)
+    dist_nb = torch.abs(torch.sum(snbr * n_unit[:, None, :], dim=-1)
                         + d_plane[:, None])
     plane_fit_ok = torch.all(dist_nb < 0.2, dim=1)
     sctr = torch.mean(snbr, dim=1, keepdim=True)
@@ -217,34 +220,65 @@ def scan_to_map(corner_src, corner_mask, surf_src, surf_mask,
     Returns device tensors (p, q, n_edge, n_plane, mean_res); nothing is
     read back to the host.
     """
-    dtype = corner_src.dtype
-    eye6 = torch.eye(6, dtype=dtype, device=corner_src.device)
-    ikw = dict(surf_i=surf_i, surf_map_i=surf_map_i)
+    block = (corner_src, corner_mask, surf_src, surf_mask, corner_map,
+             corner_map_mask, surf_map, surf_map_mask, surf_i, surf_map_i)
+    return scan_to_map_blocks([block], p0, q0, lambda parts: parts[0],
+                              outer_iters, gn_iters, max_corr_dist)
+
+
+def scan_to_map_blocks(blocks: Sequence[tuple], p0, q0,
+                       reduce: Callable[[list], torch.Tensor],
+                       outer_iters: int = 2, gn_iters: int = 4,
+                       max_corr_dist: float = 1.0):
+    """`scan_to_map` with the source features split into `blocks`, each a
+    tuple of `scan_to_map`'s arguments before p0 — (corner_src,
+    corner_mask, surf_src, surf_mask, corner_map, corner_map_mask,
+    surf_map, surf_map_mask) — and then surf_i, surf_map_i (or None), on
+    its own device, the maps whole in every block.  Each block associates
+    and linearizes its own queries; its JᵀJ and −Jᵀr, and its counts and
+    residual sums at the end, go through ``reduce(parts)``, which returns
+    their sum on (p0, q0)'s device; the 6×6 solve runs once, there.  One
+    block with ``reduce = parts[0]`` is `scan_to_map`;
+    `parallel/sharded_loam.py` gives one block per shard and the mesh's
+    sum."""
+    dtype = blocks[0][0].dtype
+    eye6 = torch.eye(6, dtype=dtype, device=p0.device)
+
+    def associate(p, q):
+        """Every block's correspondences at (p, q), and (p, q) on the
+        block's device."""
+        out = []
+        for b in blocks:
+            pb, qb = p.to(b[0].device), q.to(b[0].device)
+            out.append((find_correspondences(
+                *b[:8], pb, qb, max_corr_dist, surf_i=b[8],
+                surf_map_i=b[9]), pb, qb))
+        return out
+
     p, q = p0, q0
     for _ in range(outer_iters):
-        corr = find_correspondences(
-            corner_src, corner_mask, surf_src, surf_mask,
-            corner_map, corner_map_mask, surf_map, surf_map_mask,
-            p, q, max_corr_dist, **ikw)
+        corrs = [c for c, _, _ in associate(p, q)]
         for _ in range(gn_iters):
-            r, J = _gn_system(corr, p, q)
-            H = J.T @ J + 1e-6 * eye6
-            g = -J.T @ r
+            systems = []
+            for corr in corrs:
+                dev = corr.edge_pt.device
+                systems.append(_gn_system(corr, p.to(dev), q.to(dev)))
+            H = reduce([J.T @ J for _, J in systems]) + 1e-6 * eye6
+            g = reduce([-J.T @ r for r, J in systems])
             # solve_ex: no error check, hence no host sync
             dx = torch.linalg.solve_ex(H, g)[0]
             q = lie.quat_boxplus(q, dx[0:3])
             p = p + dx[3:6]
 
     # diagnostics: final matched counts
-    corr = find_correspondences(
-        corner_src, corner_mask, surf_src, surf_mask,
-        corner_map, corner_map_mask, surf_map, surf_map_mask, p, q,
-        max_corr_dist, **ikw)
-    re3, we, rp, wp = _residuals(corr, p, q)
-    n_edge = torch.sum(corr.edge_ok)
-    n_plane = torch.sum(corr.plane_ok)
-    mean_res = (torch.sum(torch.linalg.vector_norm(re3, dim=-1)
-                          * corr.edge_ok)
-                + torch.sum(torch.abs(rp) * corr.plane_ok)) / torch.clamp_min(
-        n_edge + n_plane, 1)
+    n_edge, n_plane, res = [], [], []
+    for corr, pb, qb in associate(p, q):
+        re3, we, rp, wp = _residuals(corr, pb, qb)
+        n_edge.append(torch.sum(corr.edge_ok))
+        n_plane.append(torch.sum(corr.plane_ok))
+        res.append(torch.sum(torch.linalg.vector_norm(re3, dim=-1)
+                             * corr.edge_ok)
+                   + torch.sum(torch.abs(rp) * corr.plane_ok))
+    n_edge, n_plane = reduce(n_edge), reduce(n_plane)
+    mean_res = reduce(res) / torch.clamp_min(n_edge + n_plane, 1)
     return p, q, n_edge, n_plane, mean_res

@@ -17,7 +17,7 @@ which skips the host-side check of ``torch.linalg.solve``.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
@@ -76,17 +76,35 @@ def vgicp_align(src: torch.Tensor, src_mask: torch.Tensor,
 
     src_map supplies per-source-point covariances (their own voxel's cov).
     """
-    dtype, dev = src.dtype, src.device
-    n = src.shape[0]
-    _, cov_s, hit_s = voxel.lookup(src_map, src)
-    w_valid = src_mask & hit_s
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-    skew_src = lie.skew(src)                                  # (N,3,3)
+    return align_blocks([(src, src_mask, tgt_map, src_map)], p0, q0,
+                        lambda parts: parts[0], iters, max_corr_dist, eps)
 
-    p, q = p0.to(dtype), q0.to(dtype)
-    last_dx = torch.full((), torch.inf, dtype=dtype, device=dev)
-    for _ in range(iters):
+
+def align_blocks(blocks: Sequence[tuple], p0: torch.Tensor,
+                 q0: torch.Tensor, reduce: Callable[[list], torch.Tensor],
+                 iters: int = 12, max_corr_dist: float = 0.8,
+                 eps: float = 5e-4) -> VgicpResult:
+    """`vgicp_align` with the source points split into `blocks`, each a
+    tuple (src, src_mask, tgt_map, src_map) on its own device (the maps
+    whole in every block).  Each block's normal equations, correspondence
+    count and fitness sum go through ``reduce(parts)``, which returns
+    their sum on (p0, q0)'s device; the 6×6 solve runs once, there.  One
+    block with ``reduce = parts[0]`` is `vgicp_align`;
+    `parallel/sharded_registration.py` gives one block per shard and the
+    mesh's sum."""
+    dtype, dev = blocks[0][0].dtype, p0.device
+    prepared = []       # per block: (src, w_valid, cov_s, [src]×, I₃, map)
+    for src, src_mask, tgt_map, src_map in blocks:
+        _, cov_s, hit_s = voxel.lookup(src_map, src)
+        eye3 = torch.eye(3, dtype=dtype, device=src.device)
+        prepared.append((src, src_mask & hit_s, cov_s, lie.skew(src), eye3,
+                         tgt_map))
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+
+    def normal_equations(p, q, src, w_valid, cov_s, skew_src, eye3,
+                         tgt_map):
+        """(JᵀWJ (6,6), −JᵀWd (6,)) of one block's matched points."""
+        p, q = p.to(src.device), q.to(src.device)
         R = lie.quat_to_mat(q)
         d, _, cov_t, ok = _correspond(src, w_valid, tgt_map, p, q,
                                       max_corr_dist)
@@ -94,10 +112,18 @@ def vgicp_align(src: torch.Tensor, src_mask: torch.Tensor,
         W = _inv3(cov_t + R @ cov_s @ R.T)
         # residual r = ts − mean_t; J wrt [δθ (right), δp]:
         # ∂r/∂δθ = −R [src]× ; ∂r/∂δp = I
-        J = torch.cat([-(R @ skew_src), eye3.expand(n, 3, 3)], dim=-1)
+        J = torch.cat([-(R @ skew_src), eye3.expand(src.shape[0], 3, 3)],
+                      dim=-1)
         JoT = (J * ok.to(dtype)[:, None, None]).transpose(-1, -2)  # (N,6,3)
-        H = (JoT @ (W @ J)).sum(0) + 1e-6 * eye6
-        g = -(JoT @ (W @ d[:, :, None])).sum(0)[:, 0]
+        return ((JoT @ (W @ J)).sum(0),
+                -(JoT @ (W @ d[:, :, None])).sum(0)[:, 0])
+
+    p, q = p0.to(dtype), q0.to(dtype)
+    last_dx = torch.full((), torch.inf, dtype=dtype, device=dev)
+    for _ in range(iters):
+        parts = [normal_equations(p, q, *b) for b in prepared]
+        H = reduce([h for h, _ in parts]) + 1e-6 * eye6
+        g = reduce([g for _, g in parts])
         dx = torch.linalg.solve_ex(H, g).result
         q = lie.quat_boxplus(q, dx[:3])
         p = p + dx[3:]
@@ -106,9 +132,14 @@ def vgicp_align(src: torch.Tensor, src_mask: torch.Tensor,
     # final fitness on the converged pose (pcl-style mean squared distance
     # of matched points — the gate used by the reference's constraint-mode
     # classifier, estimator.cpp:324-436)
-    _, d2, _, ok = _correspond(src, w_valid, tgt_map, p, q, max_corr_dist)
-    n_corr = ok.sum()
-    fitness = torch.where(ok, d2, 0.0).sum() / n_corr.clamp_min(1)
+    n_corr, sq = [], []
+    for src, w_valid, _, _, _, tgt_map in prepared:
+        _, d2, _, ok = _correspond(src, w_valid, tgt_map, p.to(src.device),
+                                   q.to(src.device), max_corr_dist)
+        n_corr.append(ok.sum())
+        sq.append(torch.where(ok, d2, 0.0).sum())
+    n_corr = reduce(n_corr)
+    fitness = reduce(sq) / n_corr.clamp_min(1)
     converged = (last_dx < eps) & (n_corr > 50)
     return VgicpResult(p=p, q=q, fitness=fitness, n_corr=n_corr,
                        converged=converged)

@@ -43,21 +43,12 @@ import torch
 from mvil_fusion_torch.estimator.vio import start_host_pack_copy
 from mvil_fusion_torch.pipeline.channels import Channel, Closed, Policy
 from mvil_fusion_torch.pipeline.runner import MultiOut, Pipeline
+from mvil_fusion_torch.utils.device import work_event
 
 STAGES = ("frontend", "estimator", "mapping")
 # how long run_threaded waits, after the flush sentinel, for the stages to
 # work off their backlog (a keyframe takes ~1 s on the card today)
 DRAIN_TIMEOUT_S = 600.0
-
-
-def _ready(device: torch.device):
-    """An event after the current stream's work so far (the producer's
-    last write), or None off the card."""
-    if device.type != "cuda":
-        return None
-    ev = torch.cuda.Event()
-    ev.record(torch.cuda.current_stream(device))
-    return ev
 
 
 def _take_over(device: torch.device, ready, tensors) -> None:
@@ -173,7 +164,7 @@ def build_pipeline(system, deterministic: bool = False,
         if kind == "lidar":
             pts, reflectivity = payload
             sweep = system.compensator.process(t, pts)
-            return ("sweep", t, (sweep, reflectivity, _ready(dev)))
+            return ("sweep", t, (sweep, reflectivity, work_event(dev)))
         return None
 
     def _drain_to_mapping(t):
@@ -185,7 +176,7 @@ def build_pipeline(system, deterministic: bool = False,
             done.append((sweep_, out, refl))
         if not done:
             return None
-        ready = _ready(dev)
+        ready = work_event(dev)
         return MultiOut([("lidar_out", t, (*d, ready)) for d in done])
 
     def estimator(msg):

@@ -90,17 +90,25 @@ class VilSystem:
 
     def _camera_pose_host(self):
         """T_w_c from the estimator's host pose cache (one frame stale by
-        design: a fresh fetch would wait for the card)."""
+        design: a fresh fetch would wait for the card).  Before a solve
+        has filled the cache (after initialization in deferred mode, after
+        a reboot) it reads the estimator's window state, which the
+        threaded pipeline writes on another stage's thread and stream: the
+        state is taken with the event after its last write, and the read
+        waits for that event on this thread's stream."""
         est = self.estimator
         cached = est.last_pose_host
         if cached is not None:
             p_b, q_b, tic, qic = cached
         else:
             k = min(est.frame_count, est.W - 1)
-            p_b = est.state.p[k].cpu().numpy()
-            q_b = est.state.q[k].cpu().numpy()
-            tic = est.state.tic.cpu().numpy()
-            qic = est.state.qic.cpu().numpy()
+            s, written = est.state_ready
+            if written is not None:
+                torch.cuda.current_stream(s.p.device).wait_event(written)
+            p_b = s.p[k].cpu().numpy()
+            q_b = s.q[k].cpu().numpy()
+            tic = s.tic.cpu().numpy()
+            qic = s.qic.cpu().numpy()
         q_c = nplie.quat_mul(q_b, qic)
         q_c = (q_c / np.linalg.norm(q_c)).astype(np.float32)
         p_c = (np.asarray(p_b)

@@ -31,3 +31,14 @@ def upload(x, device: torch.device, dtype=torch.float32) -> torch.Tensor:
     if not isinstance(x, torch.Tensor):
         x = torch.as_tensor(np.ascontiguousarray(x))
     return x.to(device, dtype, non_blocking=True)
+
+
+def work_event(device: torch.device):
+    """An event recorded after the work queued so far on the current
+    stream of `device` (a producer's last write, for a consumer on another
+    stream to wait for), or None off the card."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev

@@ -8,6 +8,7 @@ package."""
 
 import ast
 import dataclasses
+import json
 import pathlib
 
 import numpy as np
@@ -98,6 +99,23 @@ def test_front_end_config_classes_match_reference(cls):
         assert ours.intrinsics == ref.intrinsics
         assert ours.distortion == ref.distortion
         assert isinstance(ours.poly, tuple)
+
+
+def test_parallel_section_round_trips_against_reference(tmp_path):
+    """A non-default `parallel` section written by the reference loads in
+    the port, goes back to the reference unchanged, and lays out the
+    port's mesh."""
+    from mvil_fusion_torch.parallel.mesh import mesh_from_config
+    par = jconfig.ParallelConfig(mesh_shape=(4,), mesh_axes=("f",))
+    ref = jconfig.SystemConfig(parallel=par)
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(ref.to_dict()))
+    ours = tconfig.SystemConfig.from_json(str(path))
+    assert ours.parallel == tconfig.ParallelConfig(mesh_shape=(4,),
+                                                   mesh_axes=("f",))
+    assert jconfig.SystemConfig.from_dict(ours.to_dict()).parallel == par
+    mesh = mesh_from_config(ours.parallel, devices=["cpu"] * 8)
+    assert mesh.size == 4 and mesh.axis == "f"
 
 
 def test_imu_stream_matches_reference(trajs):

@@ -847,6 +847,29 @@ def test_depth_register_on_card_matches_cpu(cuda):
     assert np.median(np.abs(card[both] - fr[both])) < 0.2
 
 
+def test_camera_pose_fallback_waits_for_the_estimator_stream(cuda):
+    """With no pose cached, the frontend's camera pose reads the window
+    state that the estimator's stream is still writing: the read waits for
+    the event of the last write.  Here the estimator's stream sleeps
+    before it writes; an unordered read would see the memory before the
+    write."""
+    from mvil_fusion_torch.pipeline.system import VilSystem
+    sys_ = VilSystem(small_cfg(), enable_mapping=False)
+    est = sys_.estimator
+    assert est.last_pose_host is None
+    torch.cuda.synchronize()
+    writer, reader = torch.cuda.Stream(), torch.cuda.Stream()
+    with torch.cuda.stream(writer):
+        torch.cuda._sleep(200_000_000)
+        est.state = est.state._replace(
+            p=torch.full((est.W, 3), 7.0, device=cuda))
+    with torch.cuda.stream(reader):
+        p_c, _ = sys_._camera_pose_host()
+    torch.cuda.synchronize()
+    tic = est.state.tic.cpu().numpy()
+    np.testing.assert_allclose(p_c, 7.0 + tic, rtol=0, atol=1e-6)
+
+
 def test_vil_system_and_lidar_frontend_default_to_the_card(cuda):
     from mvil_fusion_torch.estimator.lidar_frontend import LidarFrontend
     from mvil_fusion_torch.pipeline.system import VilSystem

@@ -183,12 +183,10 @@ def test_reference_config_json_loads(tmp_path, which):
 def test_left_out_fields_hold_the_reference_defaults():
     ref = jconfig.SystemConfig()
     left = dict(tconfig.LEFT_OUT)
-    parallel = left.pop("SystemConfig")
-    assert set(parallel) == {"parallel"}
-    assert parallel["parallel"] == dataclasses.asdict(ref.parallel)
+    # every section is the port's, the multi-device one included
+    assert [f.name for f in dataclasses.fields(tconfig.SystemConfig)] == [
+        f.name for f in dataclasses.fields(ref)]
     for f in dataclasses.fields(ref):
-        if f.name == "parallel":
-            continue
         ref_sec = getattr(ref, f.name)
         ours = {x.name for x in dataclasses.fields(
             getattr(tconfig.SystemConfig(), f.name))}
@@ -201,7 +199,7 @@ def test_left_out_fields_hold_the_reference_defaults():
 
 @pytest.mark.parametrize("path,value", [
     (("estimator", "solver_dtype"), "float64"),
-    (("parallel", "mesh_shape"), [4]),
+    (("parallel", "shard_features"), False),
     (("tracker", "upload_workers"), 0),
     (("local_mapping", "knn_surf"), 5),
     (("lidar", "max_points"), 65536)])
@@ -221,7 +219,7 @@ def test_unknown_config_key_raises():
         tconfig.SystemConfig.from_dict({"no_such_section": {}})
     d = tconfig.SystemConfig().to_dict()
     d["parallel"] = {"mesh_shape": [1], "no_such_key": 1}
-    with pytest.raises(KeyError, match="parallel.no_such_key"):
+    with pytest.raises(KeyError, match="ParallelConfig.no_such_key"):
         tconfig.SystemConfig.from_dict(d)
 
 

@@ -24,6 +24,7 @@ import chip_smoke
 from mvil_fusion_tpu.pipeline.system import VilSystem as JVilSystem
 from mvil_fusion_torch.config import LocalMappingConfig
 from mvil_fusion_torch.pipeline.system import VilSystem
+from mvil_fusion_torch.utils import nplie
 from test_torch_cuda import small_cfg, sweep, window
 from test_torch_depth_register import box_scene
 from test_torch_vil import jax_config
@@ -100,6 +101,39 @@ def test_feature_depths_match_reference(systems):
     both = (dj > 0) & (dt > 0)
     assert both.sum() > 30 and ((dj > 0) != (dt > 0)).sum() <= 1
     np.testing.assert_allclose(dt[both], dj[both], rtol=0, atol=1e-4)
+
+
+def test_camera_pose_fallback_matches_reference(systems):
+    """Before a solve fills the pose cache the camera pose comes from the
+    window state, as the reference reads it: the port takes the state with
+    the event of its last write (none on the CPU)."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(7)
+    W = systems[1].estimator.W
+    unit = lambda x: (x / np.linalg.norm(x, axis=-1, keepdims=True)  # noqa: E731
+                      ).astype(np.float32)
+    p = rng.normal(size=(W, 3)).astype(np.float32)
+    q = unit(rng.normal(size=(W, 4)))
+    tic = rng.normal(scale=0.1, size=3).astype(np.float32)
+    qic = unit(rng.normal(size=4))
+    poses = []
+    for sys_, up in zip(systems, (jnp.asarray, torch.as_tensor)):
+        est = sys_.estimator
+        saved = est.state, est.last_pose_host, est.frame_count
+        try:
+            est.last_pose_host, est.frame_count = None, 3
+            est.state = est.state._replace(p=up(p), q=up(q), tic=up(tic),
+                                           qic=up(qic))
+            poses.append(sys_._camera_pose_host())
+        finally:
+            est.state, est.last_pose_host, est.frame_count = saved
+    state, written = systems[1].estimator.state_ready
+    assert state is systems[1].estimator.state and written is None
+    (pj, qj), (pt, qt) = poses
+    np.testing.assert_allclose(pt, pj, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(qt, qj, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(
+        pt, p[3] + nplie.quat_to_mat(q[3]) @ tic, rtol=0, atol=1e-6)
 
 
 def test_result_files_match_reference(tmp_path):
