@@ -1662,13 +1662,6 @@ def phase_vio(torch, card):
     info = sync.solve_info
     steady = [r for r in recs if r.get("steady")]
     waits = sorted({r["syncs"] for r in steady})
-    for k, ms in enumerate(info["init_ms"]):
-        print(f"vio: init attempt {k + 1} of {len(info['init_ms'])}: "
-              f"{sum(ms.values()):.1f} ms (essential-matrix candidates "
-              f"{ms['essential']:.1f}, SfM with its BA {ms['sfm']:.1f}, "
-              f"stage A {ms['stage_a']:.1f}, linear alignment "
-              f"{ms['linear']:.1f}, stage B {ms['stage_b']:.1f}) [{card}]",
-              flush=True)
     init = info["init"]
     block = np.asarray([r["block"] for r in steady])
     host = np.asarray([r["wall"] - r["block"] for r in steady])
@@ -2564,9 +2557,8 @@ def phase_runner(torch, card, K):
     check(m.shape == (sync_result["map_points"], 3)
           and bool(np.isfinite(m).all()), "sync: Map.npz")
     result, sys_, pipe, launches, wall, _ = runs["threaded"]
-    stages = ", ".join(
-        f"{st.name} busy {st.busy_s:.2f} s ({st.busy_s / wall:.3f} of the "
-        f"wall), {st.processed} processed" for st in pipe.stages)
+    stages = ", ".join(f"{st.name} {st.processed} processed"
+                       for st in pipe.stages)
     print(f"runner: threaded stages: {stages}; shed "
           f"{result['msgs']['shed']}; mapped sweeps "
           f"{result['midend_poses']}, k-NN launches {launches} (expected "

@@ -781,16 +781,10 @@ class VIOEstimator:
 
     def _try_initialize(self) -> bool:
         """One initialization attempt over the full window, on the
-        estimator's device.  Each attempt appends the host-clock
-        milliseconds of its stages (each ends in a read to the host) to
-        ``solve_info["init_ms"]``."""
+        estimator's device."""
         W = self.W
         e = self.cfg.estimator
         dev = self.device
-        ms = dict(essential=0.0, sfm=0.0, stage_a=0.0, linear=0.0,
-                  stage_b=0.0)
-        self.solve_info.setdefault("init_ms", []).append(ms)
-        clock = time.perf_counter
         # observation table over the full window
         obs = np.zeros((self.F, W, 2), np.float32)
         mask = np.zeros((self.F, W), bool)
@@ -810,7 +804,6 @@ class VIOEstimator:
         # rotation-consistency cost below and the best wins — an anchor
         # whose SfM is geometrically poor can pass every downstream gate
         # yet seed a solve with 10x the steady-state cost)
-        t0 = clock()
         cands = []
         x_new = self._up(obs[:, W - 1])
         for cand in range(W - 1):
@@ -830,7 +823,6 @@ class VIOEstimator:
                 generator=self.generator, idx=idx)
             if bool(r.ok):
                 cands.append((cand, r))
-        ms["essential"] = 1e3 * (clock() - t0)
         if not cands:
             return False
 
@@ -847,18 +839,14 @@ class VIOEstimator:
 
         best = None      # (cost, l, sfm, stage_a)
         for cand, r in cands:
-            t0 = clock()
             sfm_c = vinit.global_sfm(obs, mask, cand, r.R.cpu().numpy(),
                                      r.t.cpu().numpy(), device=dev)
-            ms["sfm"] += 1e3 * (clock() - t0)
             if not sfm_c.ok:
                 continue
-            t0 = clock()
             sa = vinit.estimate_ric_td_bg(
                 self._up(sfm_c.q_c0_c), preints, self._up(gyr_first),
                 self._up(gyr_last), self.state.qic,
                 fix_ric=(e.estimate_extrinsic == 0))
-            ms["stage_a"] += 1e3 * (clock() - t0)
             if not sa.ok:
                 continue
             c = float(sa.cost)
@@ -899,11 +887,9 @@ class VIOEstimator:
         # authority, seeded from the closed-form linear alignment (the
         # per-frame-scale system is underdetermined, so LM needs to start
         # in the consistent basin), with the linear solution as fallback.
-        t0 = clock()
         lin = vinit.linear_alignment(p_c0_c, q_c0_b, preints,
                                      self.cfg.imu.g_norm, self.state.tic)
         lin_scale = float(lin.scale)
-        ms["linear"] = 1e3 * (clock() - t0)
         # scale-observability gate: if the alignment cannot DETERMINE the
         # metric scale from this window (1-sigma > 25% of the estimate),
         # defer initialization — keyframe selection stretches the window
@@ -916,13 +902,11 @@ class VIOEstimator:
             return False
         seed = dict(vel0=lin.vel, g0=lin.g_c0, scale0=lin.scale) \
             if (lin.ok and lin_scale > 1e-3) else {}
-        t0 = clock()
         stage_b = vinit.estimate_vel_g_s_tic(
             p_c0_c, q_c0_b, preints, self.cfg.imu.g_norm, self.state.tic,
             self._up(e.pbc_lower), self._up(e.pbc_upper),
             fix_pbc=(e.estimate_extrinsic == 0), **seed)
         scale_vec = stage_b.scale.cpu().numpy()
-        ms["stage_b"] = 1e3 * (clock() - t0)
         if stage_b.ok and float(scale_vec.min()) > 1e-3:
             init_path = "novel_stage_b"
             s = stage_b.scale                       # (W,) per-frame scale

@@ -17,6 +17,7 @@ import torch
 from mvil_fusion_torch.config import SystemConfig
 from mvil_fusion_torch.ops import deskew as dsk
 from mvil_fusion_torch.utils.device import resolve_device
+from mvil_fusion_torch.utils.timing import TRACER
 
 # elevation presets (deg): (fov_down, fov_up, n_rings)
 SENSOR_PRESETS = {
@@ -99,20 +100,26 @@ class LidarCompensator:
         """Annotate one raw host sweep (N,3) with ring ids and relative
         times, on the compensator's device."""
         lc = self.cfg.lidar
-        fov_down, fov_up, n_rings = SENSOR_PRESETS[self.sensor]
-        if valid is None:
-            valid = np.isfinite(pts).all(axis=-1)
-        start_azi = (self._infer_start(pts, valid)
-                     if lc.infer_start_ori else 0.0)
-        table = SENSOR_ELEV_TABLES.get(self.sensor)
-        dev = self.device
-        pts_dev = torch.as_tensor(np.asarray(pts, np.float32), device=dev)
-        ring, rel, ok, inten = annotate(
-            pts_dev, torch.as_tensor(np.asarray(valid, bool), device=dev),
-            torch.tensor(start_azi, dtype=torch.float32, device=dev),
-            None if table is None else torch.as_tensor(table, device=dev),
-            n_rings=n_rings, scan_period=lc.scan_period,
-            fov_down=fov_down, fov_up=fov_up,
-            min_dist=lc.min_distance, max_dist=lc.max_distance)
-        return CompensatedSweep(pts=pts_dev, ring=ring, rel_time=rel,
-                                mask=ok, intensity=inten, t_start=t_start)
+        with TRACER.span("local_map.compensate",
+                         rid=t_start + lc.scan_period):
+            fov_down, fov_up, n_rings = SENSOR_PRESETS[self.sensor]
+            if valid is None:
+                valid = np.isfinite(pts).all(axis=-1)
+            start_azi = (self._infer_start(pts, valid)
+                         if lc.infer_start_ori else 0.0)
+            table = SENSOR_ELEV_TABLES.get(self.sensor)
+            dev = self.device
+            pts_dev = torch.as_tensor(np.asarray(pts, np.float32),
+                                      device=dev)
+            ring, rel, ok, inten = annotate(
+                pts_dev,
+                torch.as_tensor(np.asarray(valid, bool), device=dev),
+                torch.tensor(start_azi, dtype=torch.float32, device=dev),
+                None if table is None
+                else torch.as_tensor(table, device=dev),
+                n_rings=n_rings, scan_period=lc.scan_period,
+                fov_down=fov_down, fov_up=fov_up,
+                min_dist=lc.min_distance, max_dist=lc.max_distance)
+            return CompensatedSweep(pts=pts_dev, ring=ring, rel_time=rel,
+                                    mask=ok, intensity=inten,
+                                    t_start=t_start)

@@ -36,6 +36,7 @@ from mvil_fusion_torch.ops import scancontext as sc, vgicp, voxel
 from mvil_fusion_torch.utils import nplie
 from mvil_fusion_torch.utils.device import resolve_device
 from mvil_fusion_torch.utils.precision import set_fp32_policy
+from mvil_fusion_torch.utils.timing import TRACER
 
 N_MAX = 512
 E_MAX = 2048
@@ -192,10 +193,11 @@ class GlobalMapper:
         return pts, self.scan_masks[idx]
 
     def _build_reference(self, nodes) -> voxel.GaussianVoxelMap:
-        pts, mask = self._world_scans(nodes)
-        return voxel.build_gaussian_voxel_map(
-            pts.reshape(-1, 3), mask.reshape(-1),
-            self.cfg.lidar.vgicp_resolution, table_size=REF_TABLE)
+        with TRACER.span("global_map.reference_map"):
+            pts, mask = self._world_scans(nodes)
+            return voxel.build_gaussian_voxel_map(
+                pts.reshape(-1, 3), mask.reshape(-1),
+                self.cfg.lidar.vgicp_resolution, table_size=REF_TABLE)
 
     def _reference_map(self, center: np.ndarray):
         """Gaussian voxel map from the 5 nearest keyed scans (world frame,
@@ -207,24 +209,27 @@ class GlobalMapper:
     def _register(self, i: int, ref_map, p0, q0):
         """Keyed scan i against the reference map from (p0, q0), with the
         result in one fetch: (p (3,), q (4,), fitness, n_corr)."""
-        scan, scan_mask = self.scans[i], self.scan_masks[i]
-        leaf = self.cfg.lidar.vgicp_resolution
-        src_map = voxel.build_gaussian_voxel_map(scan, scan_mask, leaf,
-                                                 table_size=SCAN_TABLE)
-        reg = voxel.voxel_downsample(scan, scan_mask, leaf, REG_POINTS,
-                                     table_size=SCAN_TABLE)
-        res = vgicp.vgicp_align(
-            reg.pts, reg.mask, ref_map, src_map, self._up(p0), self._up(q0),
-            iters=self.cfg.lidar.vgicp_iters,
-            max_corr_dist=self.cfg.lidar.max_corr_dist)
-        # the count rides in the float pack as its int32 bits
-        f32 = torch.float32
-        hp = self._fetch(torch.cat([
-            res.p.to(f32), res.q.to(f32), res.fitness.to(f32)[None],
-            res.n_corr.to(torch.int32)[None].view(f32)]))
-        fitness, n_corr = float(hp[7]), int(hp[8:9].view(np.int32)[0])
-        self.last_registration = dict(node=i, fitness=fitness, n_corr=n_corr)
-        return hp[0:3], hp[3:7], fitness, n_corr
+        with TRACER.span("global_map.register"):
+            scan, scan_mask = self.scans[i], self.scan_masks[i]
+            leaf = self.cfg.lidar.vgicp_resolution
+            src_map = voxel.build_gaussian_voxel_map(scan, scan_mask, leaf,
+                                                     table_size=SCAN_TABLE)
+            reg = voxel.voxel_downsample(scan, scan_mask, leaf, REG_POINTS,
+                                         table_size=SCAN_TABLE)
+            res = vgicp.vgicp_align(
+                reg.pts, reg.mask, ref_map, src_map, self._up(p0),
+                self._up(q0),
+                iters=self.cfg.lidar.vgicp_iters,
+                max_corr_dist=self.cfg.lidar.max_corr_dist)
+            # the count rides in the float pack as its int32 bits
+            f32 = torch.float32
+            hp = self._fetch(torch.cat([
+                res.p.to(f32), res.q.to(f32), res.fitness.to(f32)[None],
+                res.n_corr.to(torch.int32)[None].view(f32)]))
+            fitness, n_corr = float(hp[7]), int(hp[8:9].view(np.int32)[0])
+            self.last_registration = dict(node=i, fitness=fitness,
+                                          n_corr=n_corr)
+            return hp[0:3], hp[3:7], fitness, n_corr
 
     def _add_edge(self, i, j, dp, dq, w):
         e = self.n_edges
@@ -247,148 +252,158 @@ class GlobalMapper:
         store evicts instead of asserting).  Node indices shift by -k;
         edges/priors touching evicted nodes are dropped.  Rare, so the
         graph makes a round trip through the host."""
-        k = min(k, self.n_nodes)
-        n = self.n_nodes
-        self.evictions += 1
-        self.readbacks += 1
-        a = pg.graph_to_numpy(self.graph)
-        for name, fill in (("p", 0.0), ("q", _IDENT), ("node_mask", False)):
-            a[name][: n - k] = a[name][k:n].copy()
-            a[name][n - k:] = fill
+        with TRACER.span("global_map.evict"):
+            k = min(k, self.n_nodes)
+            n = self.n_nodes
+            self.evictions += 1
+            self.readbacks += 1
+            a = pg.graph_to_numpy(self.graph)
+            for name, fill in (("p", 0.0), ("q", _IDENT),
+                               ("node_mask", False)):
+                a[name][: n - k] = a[name][k:n].copy()
+                a[name][n - k:] = fill
 
-        keep = np.nonzero((a["e_i"] >= k) & (a["e_j"] >= k) & a["e_mask"])[0]
-        ne = len(keep)
-        a["e_i"][:ne], a["e_j"][:ne] = a["e_i"][keep] - k, a["e_j"][keep] - k
-        for name in ("e_dp", "e_dq", "e_w"):
-            a[name][:ne] = a[name][keep]
-        a["e_mask"][:] = False
-        a["e_mask"][:ne] = True
+            keep = np.nonzero((a["e_i"] >= k) & (a["e_j"] >= k)
+                              & a["e_mask"])[0]
+            ne = len(keep)
+            a["e_i"][:ne] = a["e_i"][keep] - k
+            a["e_j"][:ne] = a["e_j"][keep] - k
+            for name in ("e_dp", "e_dq", "e_w"):
+                a[name][:ne] = a[name][keep]
+            a["e_mask"][:] = False
+            a["e_mask"][:ne] = True
 
-        zkeep = np.nonzero((a["z_node"] >= k) & a["z_mask"])[0]
-        nz = len(zkeep)
-        a["z_node"][:nz] = a["z_node"][zkeep] - k
-        for name in ("z_val", "z_w"):
-            a[name][:nz] = a[name][zkeep]
-        a["z_mask"][:] = False
-        a["z_mask"][:nz] = True
+            zkeep = np.nonzero((a["z_node"] >= k) & a["z_mask"])[0]
+            nz = len(zkeep)
+            a["z_node"][:nz] = a["z_node"][zkeep] - k
+            for name in ("z_val", "z_w"):
+                a[name][:nz] = a[name][zkeep]
+            a["z_mask"][:] = False
+            a["z_mask"][:nz] = True
 
-        self.graph = pg.graph_from_numpy(a, device=self.device)
-        self.n_nodes, self.n_edges, self.n_z = n - k, ne, nz
-        del self.times[:k], self.floor_ids[:k]
-        # device stores + host pose mirror shift
-        for store in (self.scans, self.scan_masks, self.sc_desc,
-                      self.sc_keys):
-            store[: n - k] = store[k:n].clone()
-            store[n - k:] = 0
-        self.p_host[: n - k] = self.p_host[k:n].copy()
-        self.p_host[n - k:] = 0.0
-        self.q_host[: n - k] = self.q_host[k:n].copy()
-        self.q_host[n - k:] = _IDENT
-        self.loop_pairs = [(a_ - k, b_ - k) for a_, b_ in self.loop_pairs
-                           if a_ >= k and b_ >= k]
+            self.graph = pg.graph_from_numpy(a, device=self.device)
+            self.n_nodes, self.n_edges, self.n_z = n - k, ne, nz
+            del self.times[:k], self.floor_ids[:k]
+            # device stores + host pose mirror shift
+            for store in (self.scans, self.scan_masks, self.sc_desc,
+                          self.sc_keys):
+                store[: n - k] = store[k:n].clone()
+                store[n - k:] = 0
+            self.p_host[: n - k] = self.p_host[k:n].copy()
+            self.p_host[n - k:] = 0.0
+            self.q_host[: n - k] = self.q_host[k:n].copy()
+            self.q_host[n - k:] = _IDENT
+            self.loop_pairs = [(a_ - k, b_ - k) for a_, b_ in self.loop_pairs
+                               if a_ >= k and b_ >= k]
 
     def _solve(self):
-        g = self.cfg.global_mapping
-        stats = {}
-        self.graph = pg.solve_cg(self.graph, iters=g.pg_iters,
-                                 cg_iters=g.pg_cg_iters, stats=stats)
-        self.readbacks += stats["syncs"]
-        self._refresh_host_poses()
+        with TRACER.span("global_map.solve"):
+            g = self.cfg.global_mapping
+            stats = {}
+            self.graph = pg.solve_cg(self.graph, iters=g.pg_iters,
+                                     cg_iters=g.pg_cg_iters, stats=stats)
+            self.readbacks += stats["syncs"]
+            self._refresh_host_poses()
 
     # ------------------------------------------------------------- main API
 
     def add_submap(self, sm: Submap) -> dict:
         """Process one keyed submap; returns localization info (the
         /laser_localizer feedback for the estimator's LPS)."""
-        g = self.cfg.global_mapping
-        if self.n_nodes >= self.n_max:
-            self._evict_oldest(self.n_max // 4)
-        i = self.n_nodes
-        self._store_scan(i, sm.pts)
+        with TRACER.span("global_map.submap", rid=sm.t):
+            g = self.cfg.global_mapping
+            if self.n_nodes >= self.n_max:
+                self._evict_oldest(self.n_max // 4)
+            i = self.n_nodes
+            self._store_scan(i, sm.pts)
 
-        if i == 0:
-            p_new = sm.p_w.astype(np.float32)
-            q_new = sm.q_w.astype(np.float32)
-        else:
-            # predicted pose: previous corrected node ∘ incremental delta.
-            # The delta MUST come from one consistent stream: the local
-            # mapper's refined (map-frame) poses — the reference composes
-            # /local_odom deltas the same way (globalMappingIkdTree.cpp
-            # :179-182).  (Mixing the previous ODOMETRY pose with the
-            # current MAP pose injects the full map-correction translation
-            # into every edge once the VIO drifts.)
-            p_prev, q_prev = self._node_pose(i - 1)
-            dp, dq = nplie.pose_between(self.last_odom[0], self.last_odom[1],
-                                        sm.p_w, sm.q_w)
-            p_new, q_new = nplie.pose_compose(p_prev, q_prev, dp, dq)
-            # refine against the reference map
-            p_reg, q_reg, fitness, n_corr = self._register(
-                i, self._reference_map(p_new), p_new, q_new)
-            if fitness < g.max_tolerable_fitness and n_corr > 100:
-                p_new, q_new = p_reg, q_reg
+            if i == 0:
+                p_new = sm.p_w.astype(np.float32)
+                q_new = sm.q_w.astype(np.float32)
+            else:
+                # predicted pose: previous corrected node ∘ incremental
+                # delta.  The delta MUST come from one consistent stream:
+                # the local mapper's refined (map-frame) poses — the
+                # reference composes /local_odom deltas the same way
+                # (globalMappingIkdTree.cpp:179-182).  (Mixing the previous
+                # ODOMETRY pose with the current MAP pose injects the full
+                # map-correction translation into every edge once the VIO
+                # drifts.)
+                p_prev, q_prev = self._node_pose(i - 1)
+                dp, dq = nplie.pose_between(self.last_odom[0],
+                                            self.last_odom[1], sm.p_w,
+                                            sm.q_w)
+                p_new, q_new = nplie.pose_compose(p_prev, q_prev, dp, dq)
+                # refine against the reference map
+                p_reg, q_reg, fitness, n_corr = self._register(
+                    i, self._reference_map(p_new), p_new, q_new)
+                if fitness < g.max_tolerable_fitness and n_corr > 100:
+                    p_new, q_new = p_reg, q_reg
 
-        # ---- add node (device graph + host mirror)
-        self.graph.p[i] = self._up(p_new)
-        self.graph.q[i] = self._up(q_new)
-        self.graph.node_mask[i].fill_(True)
-        self.p_host[i] = p_new
-        self.q_host[i] = q_new
-        self.times.append(sm.t)
-        fid = self._floor_id(float(p_new[2]))
-        self.floor_ids.append(fid)
-        self.last_odom = (np.asarray(sm.p_w).copy(),
-                          np.asarray(sm.q_w).copy())
-        self.n_nodes += 1
-        self._since_last_close += 1
+            # ---- add node (device graph + host mirror)
+            self.graph.p[i] = self._up(p_new)
+            self.graph.q[i] = self._up(q_new)
+            self.graph.node_mask[i].fill_(True)
+            self.p_host[i] = p_new
+            self.q_host[i] = q_new
+            self.times.append(sm.t)
+            fid = self._floor_id(float(p_new[2]))
+            self.floor_ids.append(fid)
+            self.last_odom = (np.asarray(sm.p_w).copy(),
+                              np.asarray(sm.q_w).copy())
+            self.n_nodes += 1
+            self._since_last_close += 1
 
-        # ScanContext descriptor for every keyed scan (the reference's
-        # makeAndSaveScancontextAndKeys on submap arrival :279-288) —
-        # computed and stored on device, no fetch
-        self._store_descriptor(i)
+            # ScanContext descriptor for every keyed scan (the reference's
+            # makeAndSaveScancontextAndKeys on submap arrival :279-288) —
+            # computed and stored on device, no fetch
+            self._store_descriptor(i)
 
-        # between factor to previous node (host mirror math)
-        if i > 0:
-            p_prev, q_prev = self._node_pose(i - 1)
-            dp, dq = nplie.pose_between(p_prev, q_prev, p_new, q_new)
-            self._add_edge(i - 1, i, dp, dq, 10.0)
+            # between factor to previous node (host mirror math)
+            if i > 0:
+                p_prev, q_prev = self._node_pose(i - 1)
+                dp, dq = nplie.pose_between(p_prev, q_prev, p_new, q_new)
+                self._add_edge(i - 1, i, dp, dq, 10.0)
 
-        # GPS-z floor prior (variance 50 when near the floor plane, huge
-        # otherwise — globalMappingIkdTree.cpp:216-228)
-        fh = g.floor_height
-        z_floor = fid * fh
-        near_floor = abs(float(p_new[2]) - z_floor) < 0.25 * fh
-        if self.n_z < self.z_max:
-            gr, k = self.graph, self.n_z
-            gr.z_node[k].fill_(i)
-            gr.z_val[k].fill_(float(z_floor))
-            gr.z_w[k].fill_((1.0 / np.sqrt(50.0)) if near_floor else 1e-3)
-            gr.z_mask[k].fill_(True)
-            self.n_z += 1
+            # GPS-z floor prior (variance 50 when near the floor plane, huge
+            # otherwise — globalMappingIkdTree.cpp:216-228)
+            fh = g.floor_height
+            z_floor = fid * fh
+            near_floor = abs(float(p_new[2]) - z_floor) < 0.25 * fh
+            if self.n_z < self.z_max:
+                gr, k = self.graph, self.n_z
+                gr.z_node[k].fill_(i)
+                gr.z_val[k].fill_(float(z_floor))
+                gr.z_w[k].fill_((1.0 / np.sqrt(50.0)) if near_floor else 1e-3)
+                gr.z_mask[k].fill_(True)
+                self.n_z += 1
 
-        # ---- loop closures
-        closed = False
-        if g.check_loop_closure and self._since_last_close >= \
-                g.poses_before_reclosing:
-            closed = self._try_radius_loop(i) or self._try_sc_loop(i)
-        if closed:
-            self.loops_closed += 1
-            self._since_last_close = 0
-            self._solve()
-        elif i > 0 and abs(float(p_new[2])
-                           - float(self.p_host[i - 1, 2])) \
-                > g.z_refresh_jump:
-            # z-jump (floor transition / drift): re-solve so the floor
-            # priors engage and subsequent reference maps use corrected
-            # poses — the analog of the reference's ikd-tree rebuild from
-            # maximum-likelihood points (globalMappingIkdTree.cpp:290-298;
-            # the reference map here is rebuilt from graph poses per
-            # query, so re-solving *is* the map refresh)
-            self._solve()
-            self.map_refreshes += 1
+            # ---- loop closures
+            closed = False
+            if g.check_loop_closure and self._since_last_close >= \
+                    g.poses_before_reclosing:
+                with TRACER.span("global_map.loop_search"):
+                    closed = (self._try_radius_loop(i)
+                              or self._try_sc_loop(i))
+            if closed:
+                self.loops_closed += 1
+                self._since_last_close = 0
+                self._solve()
+            elif i > 0 and abs(float(p_new[2])
+                               - float(self.p_host[i - 1, 2])) \
+                    > g.z_refresh_jump:
+                # z-jump (floor transition / drift): re-solve so the floor
+                # priors engage and subsequent reference maps use corrected
+                # poses — the analog of the reference's ikd-tree rebuild from
+                # maximum-likelihood points (globalMappingIkdTree.cpp:290-298;
+                # the reference map here is rebuilt from graph poses per
+                # query, so re-solving *is* the map refresh)
+                self._solve()
+                self.map_refreshes += 1
 
-        p_fin, q_fin = self._node_pose(i)
-        return dict(node=i, p=p_fin, q=q_fin, t=sm.t, floor=fid,
-                    closed_loop=closed)
+            p_fin, q_fin = self._node_pose(i)
+            return dict(node=i, p=p_fin, q=q_fin, t=sm.t, floor=fid,
+                        closed_loop=closed)
 
     # ---------------------------------------------------------------- loops
 
@@ -453,12 +468,13 @@ class GlobalMapper:
     # --------------------------------------------------------------- output
 
     def _store_descriptor(self, i: int) -> None:
-        g = self.cfg.global_mapping
-        desc = sc.make_descriptor(
-            self.scans[i], self.scan_masks[i], n_ring=g.sc_num_ring,
-            n_sector=g.sc_num_sector, max_radius=g.sc_max_radius)
-        self.sc_desc[i] = desc
-        self.sc_keys[i] = sc.ring_key(desc)
+        with TRACER.span("global_map.descriptor"):
+            g = self.cfg.global_mapping
+            desc = sc.make_descriptor(
+                self.scans[i], self.scan_masks[i], n_ring=g.sc_num_ring,
+                n_sector=g.sc_num_sector, max_radius=g.sc_max_radius)
+            self.sc_desc[i] = desc
+            self.sc_keys[i] = sc.ring_key(desc)
 
     def ensure_descriptor(self, i: int):
         """Recompute a missing descriptor (checkpoint-restore path)."""

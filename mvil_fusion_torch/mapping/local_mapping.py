@@ -26,6 +26,7 @@ from mvil_fusion_torch.ops import loam_icp, voxel
 from mvil_fusion_torch.utils import lie
 from mvil_fusion_torch.utils.device import resolve_device
 from mvil_fusion_torch.utils.precision import set_fp32_policy
+from mvil_fusion_torch.utils.timing import TRACER
 
 CORNER_CAP = 16384
 SURF_CAP = 32768
@@ -153,21 +154,24 @@ class LocalMapper:
         gate on the device (a degenerate association, or an empty/reset
         map, keeps the guess) and the new map-to-odometry correction.
         Returns the pose and the sweep's 17-float pack."""
-        m = self.cfg.local_mapping
-        p_guess, q_guess = self._apply_corr(p_odom, q_odom)
-        ikw = dict(surf_i=flat_i, surf_map_i=self.surf_map_i) if use_i \
-            else dict(surf_i=None, surf_map_i=None)
-        p_new, q_new, n_e, n_p, res = loam_icp.scan_to_map(
-            sharp, sharp_mask, flat, flat_mask, self.corner_map,
-            self.corner_mask, self.surf_map, self.surf_mask, p_guess,
-            q_guess, outer_iters=m.outer_iters, gn_iters=m.gn_iters, **ikw)
-        cnt_ok = (n_e + n_p) >= 50
-        p_new = torch.where(cnt_ok, p_new, p_guess)
-        q_new = torch.where(cnt_ok, q_new, q_guess)
-        p_oi, q_oi = lie.pose_inverse(p_odom, q_odom)
-        self.p_corr, self.q_corr = lie.pose_compose(p_new, q_new, p_oi, q_oi)
-        return p_new, q_new, _pack(p_new, q_new, n_e, n_p, res, p_odom,
-                                   q_odom)
+        with TRACER.span("local_map.scan_to_map"):
+            m = self.cfg.local_mapping
+            p_guess, q_guess = self._apply_corr(p_odom, q_odom)
+            ikw = dict(surf_i=flat_i, surf_map_i=self.surf_map_i) if use_i \
+                else dict(surf_i=None, surf_map_i=None)
+            p_new, q_new, n_e, n_p, res = loam_icp.scan_to_map(
+                sharp, sharp_mask, flat, flat_mask, self.corner_map,
+                self.corner_mask, self.surf_map, self.surf_mask, p_guess,
+                q_guess, outer_iters=m.outer_iters, gn_iters=m.gn_iters,
+                **ikw)
+            cnt_ok = (n_e + n_p) >= 50
+            p_new = torch.where(cnt_ok, p_new, p_guess)
+            q_new = torch.where(cnt_ok, q_new, q_guess)
+            p_oi, q_oi = lie.pose_inverse(p_odom, q_odom)
+            self.p_corr, self.q_corr = lie.pose_compose(p_new, q_new, p_oi,
+                                                        q_oi)
+            return p_new, q_new, _pack(p_new, q_new, n_e, n_p, res, p_odom,
+                                       q_odom)
 
     def _update_maps(self, p_new, q_new, sharp, sharp_mask, flat, flat_mask,
                      flat_i):
@@ -175,24 +179,27 @@ class LocalMapper:
         rolling maps (re-voxelized; the surf map carries intensity as a 4th
         voxel-averaged channel), crop them around the sensor, and add the
         flat points to the submap accumulation."""
-        m = self.cfg.local_mapping
-        ts = m.downsample_table_size
-        sharp_w = lie.quat_rotate(q_new[None, :], sharp) + p_new[None, :]
-        flat_w = lie.quat_rotate(q_new[None, :], flat) + p_new[None, :]
-        self.corner_map, self.corner_mask = _insert(
-            self.corner_map, self.corner_mask, sharp_w, sharp_mask,
-            m.corner_leaf, CORNER_CAP, ts)
-        surf4 = torch.cat([self.surf_map, self.surf_map_i[:, None]], dim=1)
-        new4 = torch.cat([flat_w, flat_i[:, None]], dim=1)
-        surf4_new, self.surf_mask = _insert(
-            surf4, self.surf_mask, new4, flat_mask, m.surf_leaf, SURF_CAP, ts)
-        self.surf_map = surf4_new[:, :3].contiguous()
-        self.surf_map_i = surf4_new[:, 3].contiguous()
-        self._crop(p_new)
-        self.accum_buf, self.accum_mask = _insert(
-            self.accum_buf, self.accum_mask, flat_w, flat_mask, m.surf_leaf,
-            SUBMAP_CAP, ts)
-        self.initialized = True
+        with TRACER.span("local_map.map_update"):
+            m = self.cfg.local_mapping
+            ts = m.downsample_table_size
+            sharp_w = lie.quat_rotate(q_new[None, :], sharp) + p_new[None, :]
+            flat_w = lie.quat_rotate(q_new[None, :], flat) + p_new[None, :]
+            self.corner_map, self.corner_mask = _insert(
+                self.corner_map, self.corner_mask, sharp_w, sharp_mask,
+                m.corner_leaf, CORNER_CAP, ts)
+            surf4 = torch.cat([self.surf_map, self.surf_map_i[:, None]],
+                              dim=1)
+            new4 = torch.cat([flat_w, flat_i[:, None]], dim=1)
+            surf4_new, self.surf_mask = _insert(
+                surf4, self.surf_mask, new4, flat_mask, m.surf_leaf,
+                SURF_CAP, ts)
+            self.surf_map = surf4_new[:, :3].contiguous()
+            self.surf_map_i = surf4_new[:, 3].contiguous()
+            self._crop(p_new)
+            self.accum_buf, self.accum_mask = _insert(
+                self.accum_buf, self.accum_mask, flat_w, flat_mask,
+                m.surf_leaf, SUBMAP_CAP, ts)
+            self.initialized = True
 
     # ------------------------------------------------------------------
 
@@ -202,42 +209,47 @@ class LocalMapper:
                      scan_period: float) -> Optional[Submap]:
         """One deskewed sweep through LOAM extraction + scan-to-map +
         map/submap maintenance, with one blocking readback."""
-        m = self.cfg.local_mapping
-        # drain the previous sweep's deferred pack FIRST: a submap emission
-        # must reset the rolling map before this sweep's insert runs
-        sm_prev = self._harvest() if self.defer_pack else None
-        use_i = m.use_intensity and inten is not None
-        full_pts = self._t(full_pts)
-        if inten is None:
-            inten = torch.zeros((full_pts.shape[0],), dtype=torch.float32,
-                                device=self.device)
-        p_odom, q_odom = self._t(p_odom), self._t(q_odom)
+        with TRACER.span("local_map.process_full", rid=t):
+            m = self.cfg.local_mapping
+            # drain the previous sweep's deferred pack FIRST: a submap
+            # emission must reset the rolling map before this sweep's
+            # insert runs
+            sm_prev = self._harvest() if self.defer_pack else None
+            use_i = m.use_intensity and inten is not None
+            full_pts = self._t(full_pts)
+            if inten is None:
+                inten = torch.zeros((full_pts.shape[0],),
+                                    dtype=torch.float32, device=self.device)
+            p_odom, q_odom = self._t(p_odom), self._t(q_odom)
 
-        grid, occ, igrid = lfe.organize_grid(
-            full_pts, self._t(ring, torch.int32), self._t(rel_time),
-            self._t(full_mask, torch.bool), n_rings=n_rings,
-            n_azimuth=n_azimuth, scan_period=scan_period,
-            intensity=self._t(inten))
-        feats = lfe.extract(grid, occ, igrid, use_intensity_mask=use_i)
-        sharp, sharp_mask = feats.sharp, feats.sharp_mask
-        flat, flat_mask = feats.less_flat, feats.less_flat_mask
-        flat_i = feats.less_flat_i
+            with TRACER.span("local_map.features"):
+                grid, occ, igrid = lfe.organize_grid(
+                    full_pts, self._t(ring, torch.int32), self._t(rel_time),
+                    self._t(full_mask, torch.bool), n_rings=n_rings,
+                    n_azimuth=n_azimuth, scan_period=scan_period,
+                    intensity=self._t(inten))
+                feats = lfe.extract(grid, occ, igrid,
+                                    use_intensity_mask=use_i)
+            sharp, sharp_mask = feats.sharp, feats.sharp_mask
+            flat, flat_mask = feats.less_flat, feats.less_flat_mask
+            flat_i = feats.less_flat_i
 
-        p_new, q_new, pack = self._register(sharp, sharp_mask, flat,
-                                            flat_mask, flat_i, use_i, p_odom,
-                                            q_odom)
-        self._update_maps(p_new, q_new, sharp, sharp_mask, flat, flat_mask,
-                          flat_i)
-        if self.defer_pack:
-            host = pack.to("cpu", non_blocking=True)
-            ready = None
-            if pack.is_cuda:
-                ready = torch.cuda.Event()
-                ready.record(torch.cuda.current_stream(self.device))
-            self._pending = (t, host, ready, p_new, q_new)
-            return sm_prev
-        hp = pack.cpu().numpy()          # the stage's single readback
-        return self._after_step(t, hp, p_new, q_new)
+            p_new, q_new, pack = self._register(sharp, sharp_mask, flat,
+                                                flat_mask, flat_i, use_i,
+                                                p_odom, q_odom)
+            self._update_maps(p_new, q_new, sharp, sharp_mask, flat,
+                              flat_mask, flat_i)
+            if self.defer_pack:
+                host = pack.to("cpu", non_blocking=True)
+                ready = None
+                if pack.is_cuda:
+                    ready = torch.cuda.Event()
+                    ready.record(torch.cuda.current_stream(self.device))
+                self._pending = (t, host, ready, p_new, q_new)
+                return sm_prev
+            with TRACER.span("local_map.readback"):
+                hp = pack.cpu().numpy()      # the stage's single readback
+            return self._after_step(t, hp, p_new, q_new)
 
     def _harvest(self) -> Optional[Submap]:
         """Drain the deferred sweep pack; may emit the pending submap."""
@@ -245,9 +257,11 @@ class LocalMapper:
             return None
         t, host, ready, p_dev, q_dev = self._pending
         self._pending = None
-        if ready is not None:
-            ready.synchronize()
-        return self._after_step(t, host.numpy(), p_dev, q_dev)
+        with TRACER.span("local_map.readback"):
+            if ready is not None:
+                ready.synchronize()
+            hp = host.numpy()
+        return self._after_step(t, hp, p_dev, q_dev)
 
     def flush(self) -> Optional[Submap]:
         """End-of-stream: drain any deferred pack (final trajectory row /
@@ -292,29 +306,31 @@ class LocalMapper:
                                             q_odom)
         self._update_maps(p_new, q_new, sharp, sharp_mask, flat, flat_mask,
                           flat_i)
-        hp = pack.cpu().numpy()          # the frame's single readback
+        with TRACER.span("local_map.readback"):
+            hp = pack.cpu().numpy()      # the frame's single readback
         return self._after_step(t, hp, p_new, q_new)
 
     def _emit_submap(self, t, p_np, q_np, p_dev, q_dev,
                      p_odom, q_odom) -> Submap:
         """Publish the accumulated map in the key-pose body frame (one
         readback), then reset the rolling map."""
-        pts_b = lie.quat_rotate_inv(q_dev[None, :],
-                                    self.accum_buf - p_dev[None, :])
-        packed = torch.cat([pts_b, self.accum_mask[:, None].to(
-            torch.float32)], dim=1).cpu().numpy()
-        pts_b = packed[packed[:, 3] > 0.5, :3]
-        sm = Submap(t=t, p_w=p_np.copy(), q_w=q_np.copy(),
-                    pts=pts_b.astype(np.float32),
-                    odom_p=np.asarray(p_odom).copy(),
-                    odom_q=np.asarray(q_odom).copy())
-        # reset the rolling map (the global back end owns long-term
-        # consistency)
-        self.corner_mask = torch.zeros_like(self.corner_mask)
-        self.surf_mask = torch.zeros_like(self.surf_mask)
-        self.initialized = False
-        self.accum_mask = torch.zeros_like(self.accum_mask)
-        self.accum_start_pose = None
-        self.frames_since_submap = 0
-        self.submaps_emitted += 1
-        return sm
+        with TRACER.span("local_map.emit_submap"):
+            pts_b = lie.quat_rotate_inv(q_dev[None, :],
+                                        self.accum_buf - p_dev[None, :])
+            packed = torch.cat([pts_b, self.accum_mask[:, None].to(
+                torch.float32)], dim=1).cpu().numpy()
+            pts_b = packed[packed[:, 3] > 0.5, :3]
+            sm = Submap(t=t, p_w=p_np.copy(), q_w=q_np.copy(),
+                        pts=pts_b.astype(np.float32),
+                        odom_p=np.asarray(p_odom).copy(),
+                        odom_q=np.asarray(q_odom).copy())
+            # reset the rolling map (the global back end owns long-term
+            # consistency)
+            self.corner_mask = torch.zeros_like(self.corner_mask)
+            self.surf_mask = torch.zeros_like(self.surf_mask)
+            self.initialized = False
+            self.accum_mask = torch.zeros_like(self.accum_mask)
+            self.accum_start_pose = None
+            self.frames_since_submap = 0
+            self.submaps_emitted += 1
+            return sm

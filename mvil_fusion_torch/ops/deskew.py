@@ -12,6 +12,7 @@ import math
 import torch
 
 from mvil_fusion_torch.utils import lie
+from mvil_fusion_torch.utils.timing import TRACER
 
 
 def deskew_to_end(pts: torch.Tensor, rel_time: torch.Tensor,
@@ -24,12 +25,14 @@ def deskew_to_end(pts: torch.Tensor, rel_time: torch.Tensor,
     rel_time: (N,) seconds from sweep start; (p,q)_start/end: sensor poses in
     a common frame at sweep start/end.
     """
-    s = (rel_time / scan_period).clamp(0.0, 1.0)
-    q_t = lie.quat_slerp(q_start[None, :], q_end[None, :], s)
-    p_t = p_start[None, :] * (1.0 - s[:, None]) + p_end[None, :] * s[:, None]
-    # world point at capture time, then into the end frame
-    pw = lie.quat_rotate(q_t, pts) + p_t
-    return lie.quat_rotate_inv(q_end[None, :], pw - p_end[None, :])
+    with TRACER.span("local_map.deskew"):
+        s = (rel_time / scan_period).clamp(0.0, 1.0)
+        q_t = lie.quat_slerp(q_start[None, :], q_end[None, :], s)
+        p_t = (p_start[None, :] * (1.0 - s[:, None])
+               + p_end[None, :] * s[:, None])
+        # world point at capture time, then into the end frame
+        pw = lie.quat_rotate(q_t, pts) + p_t
+        return lie.quat_rotate_inv(q_end[None, :], pw - p_end[None, :])
 
 
 def ring_and_time(pts: torch.Tensor, n_rings: int, scan_period: float,

@@ -52,8 +52,6 @@ class Stage:
     stream: Optional[torch.cuda.Stream] = None   # the stage's CUDA stream
     processed: int = 0
     finished: int = 0             # items taken and done with, errors too
-    busy: bool = False            # an item is in flight inside fn
-    busy_s: float = 0.0           # cumulative wall seconds inside fn
     errors: list = field(default_factory=list)
 
 
@@ -120,13 +118,7 @@ class Pipeline:
                 if st.outbox is not None:
                     st.outbox.close()
                 return
-            st.busy = True
-            t0 = time.perf_counter()
-            try:
-                self._run(st, item)
-            finally:
-                st.busy_s += time.perf_counter() - t0
-                st.busy = False
+            self._run(st, item)
 
     def start(self):
         if self.deterministic:

@@ -7,7 +7,7 @@ Frontend/Midend/Backend.txt).  One command:
 
     python -m mvil_fusion_torch.run --bag X.bag --out /tmp/run_ \\
         [--config cfg.json] [--golden gt_tum.txt] [--threaded] \\
-        [--device cpu]
+        [--device cpu] [--trace-summary]
 
 reads the bag (none/bz2/lz4 chunks), drives images through the KLT
 tracker, IMU and LiDAR through the estimator and mapping stack, writes the
@@ -15,6 +15,8 @@ three trajectory files, and — when a golden/ground-truth TUM file is given
 — prints ATE/RPE metrics as one JSON line.  It runs on the card unless
 `--device` names another device (the CPU tests pass `--device cpu`); the
 reference's `--platform` switch of JAX backends has no counterpart.
+`--trace-summary` turns on the port's tracer (``utils/timing.py``) and
+prints its table of spans to standard error at the end.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from mvil_fusion_torch.io.fixture import IMAGE_TOPIC, IMU_TOPIC, LIDAR_TOPIC
 from mvil_fusion_torch.pipeline.system import VilSystem
 from mvil_fusion_torch.utils import evaluation as ev
 from mvil_fusion_torch.utils.device import resolve_device
+from mvil_fusion_torch.utils.timing import TRACER
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,6 +76,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device to run on (e.g. cpu); default: the "
                     "current CUDA card, an error where there is none")
+    ap.add_argument("--trace-summary", action="store_true",
+                    help="record the port's spans and print their table "
+                    "(count, mean, p95 and self ms by span) to stderr at "
+                    "the end")
     return ap
 
 
@@ -210,7 +217,15 @@ def run(args) -> dict:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    result = run(args)
+    if args.trace_summary:
+        TRACER.enable()
+    try:
+        result = run(args)
+    finally:
+        if args.trace_summary:
+            TRACER.disable()
+            print(TRACER.summary(), file=sys.stderr)
+            TRACER.drain()
     print(json.dumps(result))
     return result
 

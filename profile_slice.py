@@ -123,9 +123,10 @@ slots, sync readback):
 2. profile: a second run of frames 1–13, each part of the init attempt's
    frame and of frame 13 under its own torch.profiler: kernel launches,
    device ms and host syncs per part;
-3. again: the init attempt again, by stage, on the card (the kernels it
-   uses loaded by then) and with the estimator on the host's CPU: what
-   moving the init chain off the card would give.
+3. again: the init attempts again, by stage (the host clock around each
+   stage's function), on the card (the kernels it uses loaded by then)
+   and with the estimator on the host's CPU: what moving the init chain
+   off the card would give.
 
 With --vil it profiles VIL odometry and the whole system instead, on the
 streams of chip_smoke.py's phases 12 and 13 (sweeps of 16 × 900 points at
@@ -149,8 +150,8 @@ bag instead (run.main with --threaded on the recorded fixture bag and
 --config fixture_config()), under torch.profiler's CUDA activity (the card's
 kernels and copies on every stream, and each thread's launches):
 
-1. stages: each stage's busy seconds (its calls, host clock) and the
-   kernel launches inside its calls (the profiler gives every launch the
+1. stages: each stage's items processed and the kernel launches inside
+   its calls (the profiler gives every launch the
    same thread id, so a launch goes to the stage whose call holds it;
    calls of two stages overlap, and their launches count apart);
 2. device: the share of the run's wall in which some kernel or copy ran
@@ -885,14 +886,25 @@ def vio_profile(torch, card) -> None:
     # the passes above, and with the estimator on the host's CPU
     for dev in ("cuda:0", "cpu"):
         est = VIOEstimator(cfg, device=dev)
-        for f in frames[:cfg.estimator.window_size + 1]:
-            smoke.feed(est, f)
+        spent = collections.Counter()
+
+        def clocked(part, fn, *a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            spent[part] += 1e3 * (time.perf_counter() - t)
+            return out
+        undo = instrument_vio(est, clocked)
+        try:
+            for f in frames[:cfg.estimator.window_size + 1]:
+                smoke.feed(est, f)
+        finally:
+            undo()
         smoke.check(est.status == est.NON_LINEAR, f"not initialized on {dev}")
-        for ms in est.solve_info["init_ms"]:
-            print(f"again: init attempt on {dev} ({torch.get_num_threads()}"
-                  f" CPU threads): {sum(ms.values()):.1f} ms; " + ", ".join(
-                      f"{k} {v:.1f}" for k, v in ms.items()) + f" [{card}]",
-                  flush=True)
+        ms = {k: spent[k] for k, _ in INIT_STAGES}
+        print(f"again: init attempts on {dev} ({torch.get_num_threads()}"
+              f" CPU threads): {sum(ms.values()):.1f} ms; " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in ms.items()) + f" [{card}]",
+              flush=True)
 
 
 SWEEP_PARTS = (("deskew", "dsk", "deskew_to_end"),
@@ -1188,10 +1200,9 @@ def pipeline_profile(torch, card, n_gaps: int = 10) -> None:
           f"{by_stage['overlap']} inside calls of two or three stages "
           f"[{card}]", flush=True)
     for st in build.pipe.stages:
-        print(f"  stage {st.name:<9} busy {st.busy_s:8.2f} s "
-              f"({st.busy_s / (wall_ns / 1e9):.3f} of the wall), "
-              f"{st.processed} processed, {by_stage.get(st.name, 0)} "
-              f"launches inside its calls alone", flush=True)
+        print(f"  stage {st.name:<9} {st.processed} processed, "
+              f"{by_stage.get(st.name, 0)} launches inside its calls alone",
+              flush=True)
     busy = _union([(a, b) for a, b, _ in device if b > t0 and a < t1])
     busy_ns = sum(min(b, t1) - max(a, t0) for a, b in busy)
     print(f"  device busy {busy_ns / 1e9:.3f} s of {wall_ns / 1e9:.2f} s:"

@@ -1,5 +1,5 @@
 """Checkpoint/resume of the port (``mvil_fusion_torch/utils/checkpoint.py``)
-and its stage timer (``utils/timing.py``).
+and its tracer's summary (``utils/timing.py``).
 
 A VilSystem on the hand-built NON_LINEAR window of tests/test_torch_system.py
 (mapping on, a submap every second sweep) is saved after one mapped sweep
@@ -97,19 +97,21 @@ def test_checkpoint_refuses_foreign_globals(tmp_path, payload):
         checkpoint.load_system(est, path)
 
 
-def test_profiler_sections(tmp_path):
-    prof = timing.Profiler()
-    with prof.section("a"):
+def test_profiler_sections():
+    tracer = timing.Tracer()
+    tracer.enable()
+    with tracer.span("a"):
         sum(range(1000))
-    with prof.section("a"):
-        pass
-    with prof.section("b", sync=True):
-        pass
-    assert prof.stats["a"].count == 2
-    assert "a" in prof.summary() and "b" in prof.summary()
-    with timing.torch_trace(str(tmp_path / "trace")):
-        torch.ones(8).sum()
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    with tracer.span("a"):
+        with tracer.span("b"):
+            torch.ones(8).sum()
+    rows = {r.split()[0]: r.split()[1:]
+            for r in tracer.summary().splitlines()[1:]}
+    assert rows["a"][0] == "2" and rows["b"][0] == "1"
+    recs = tracer.drain()
+    assert [(r.name, r.parent) for r in recs] == [("a", None), ("a", None),
+                                                  ("b", 1)]
+    assert tracer.drain() == []
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 initialize (0.5 s, 160 × 120 images), synchronous and threaded, against
 the JAX runner on the same bag and configuration: the result JSON has the
 reference's keys, its message counts are the bag's own, the mapping and
-solver entries are equal, and the result files and the map are written.
+solver entries are equal, and the result files and the map are written;
+with `--trace-summary` the tracer's table goes to standard error.
 The end-to-end runs that initialize and track are `slow`, as the
 reference's tests/test_offline_runner.py is: the port's runner, sync and
 threaded, on that file's bag, with the message counts of the JAX runner's
@@ -93,6 +94,22 @@ def test_runner_on_short_bag(short_bag, reference_result, tmp_path,
     assert "POINTS 0" in open(out + "Map.pcd").read()
 
 
+def test_trace_summary_goes_to_stderr(short_bag, tmp_path, capsys):
+    from mvil_fusion_torch.utils.timing import TRACER
+    bag, gt, cfgp = short_bag
+    result = trun.main(["--bag", bag, "--config", cfgp, "--out",
+                        str(tmp_path) + "/run_", "--device", "cpu",
+                        "--trace-summary"])
+    out, err = capsys.readouterr()
+    assert json.loads(out.splitlines()[-1]) == result
+    table = err.splitlines()
+    head = table.index(next(r for r in table if r.startswith("span ")))
+    assert table[head].split()[1:] == ["count", "mean", "ms", "p95", "ms",
+                                       "self", "ms"]
+    assert "local_map.compensate" in {r.split()[0] for r in table[head + 1:]}
+    assert not TRACER.on and TRACER.drain() == []
+
+
 def test_runner_needs_a_card_by_default(short_bag):
     import torch
     if torch.cuda.is_available():
@@ -111,6 +128,7 @@ def test_parser_matches_reference():
     ours = options(trun.build_parser())
     assert ref.pop("platform") == (None, False)
     assert ours.pop("device") == (None, False)
+    assert ours.pop("trace_summary") == (False, False)
     assert ours == ref
 
 
