@@ -9,7 +9,9 @@ publish every > 2 m or 30 frames, then reset the map).
 The mapper's state lives on its ``device``.  A sweep queues its whole
 device work — grid, features, scan-to-map, count gate, map inserts and
 crop, submap accumulation — and reads back one 17-float pack; a submap
-emission reads back the submap once more.
+emission reads back the submap once more.  On a card scan-to-map replays
+as CUDA graphs (``loam_icp.ScanToMapGraphs``), fed copies of the rolling
+maps, so the map's own tensors stay the mapper's.
 """
 
 from __future__ import annotations
@@ -60,6 +62,19 @@ def _insert(buf, msk, new_pts, new_mask, leaf, cap, table_size):
     return ds.pts, ds.mask
 
 
+def _gate(p_guess, q_guess, p, q, n_e, n_p, res, p_odom, q_odom):
+    """The count gate (a degenerate association, or an empty or reset map,
+    keeps the guess), the new map-to-odometry correction and the pack:
+    (p, q, p_corr, q_corr, pack).  Scan-to-map's `finish`."""
+    cnt_ok = (n_e + n_p) >= 50
+    p_new = torch.where(cnt_ok, p, p_guess)
+    q_new = torch.where(cnt_ok, q, q_guess)
+    p_oi, q_oi = lie.pose_inverse(p_odom, q_odom)
+    p_corr, q_corr = lie.pose_compose(p_new, q_new, p_oi, q_oi)
+    return p_new, q_new, p_corr, q_corr, _pack(p_new, q_new, n_e, n_p, res,
+                                               p_odom, q_odom)
+
+
 def _pack(p_new, q_new, n_e, n_p, res, p_odom, q_odom):
     """The sweep's single host readback: 0:3 p, 3:7 q, 7:10 (n_edge,
     n_plane, mean residual), 10:13 odometry p, 13:17 odometry q."""
@@ -107,6 +122,9 @@ class LocalMapper:
         # mode, just shifted to the next call
         self.defer_pack = False
         self._pending: Optional[tuple] = None
+        # scan-to-map, replayed as CUDA graphs on a card; its counts of
+        # captures, replays and eager calls say how often they engage
+        self.scan_graphs = loam_icp.ScanToMapGraphs()
 
     # ------------------------------------------------------------------
 
@@ -150,28 +168,21 @@ class LocalMapper:
 
     def _register(self, sharp, sharp_mask, flat, flat_mask, flat_i, use_i,
                   p_odom, q_odom):
-        """Scan-to-map from the corrected odometry guess, then the count
-        gate on the device (a degenerate association, or an empty/reset
-        map, keeps the guess) and the new map-to-odometry correction.
-        Returns the pose and the sweep's 17-float pack."""
+        """Scan-to-map from the corrected odometry guess, then `_gate` on
+        the device: the count gate and the new map-to-odometry correction.
+        On a card both replay as CUDA graphs (`scan_graphs`).  Returns the
+        pose and the sweep's 17-float pack."""
         with TRACER.span("local_map.scan_to_map"):
             m = self.cfg.local_mapping
             p_guess, q_guess = self._apply_corr(p_odom, q_odom)
             ikw = dict(surf_i=flat_i, surf_map_i=self.surf_map_i) if use_i \
                 else dict(surf_i=None, surf_map_i=None)
-            p_new, q_new, n_e, n_p, res = loam_icp.scan_to_map(
+            p_new, q_new, self.p_corr, self.q_corr, pack = self.scan_graphs(
                 sharp, sharp_mask, flat, flat_mask, self.corner_map,
                 self.corner_mask, self.surf_map, self.surf_mask, p_guess,
                 q_guess, outer_iters=m.outer_iters, gn_iters=m.gn_iters,
-                **ikw)
-            cnt_ok = (n_e + n_p) >= 50
-            p_new = torch.where(cnt_ok, p_new, p_guess)
-            q_new = torch.where(cnt_ok, q_new, q_guess)
-            p_oi, q_oi = lie.pose_inverse(p_odom, q_odom)
-            self.p_corr, self.q_corr = lie.pose_compose(p_new, q_new, p_oi,
-                                                        q_oi)
-            return p_new, q_new, _pack(p_new, q_new, n_e, n_p, res, p_odom,
-                                       q_odom)
+                finish=_gate, finish_args=(p_odom, q_odom), **ikw)
+            return p_new, q_new, pack
 
     def _update_maps(self, p_new, q_new, sharp, sharp_mask, flat, flat_mask,
                      flat_i):

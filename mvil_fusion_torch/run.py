@@ -16,7 +16,9 @@ three trajectory files, and — when a golden/ground-truth TUM file is given
 `--device` names another device (the CPU tests pass `--device cpu`); the
 reference's `--platform` switch of JAX backends has no counterpart.
 `--trace-summary` turns on the port's tracer (``utils/timing.py``) and
-prints its table of spans to standard error at the end.
+prints its table of spans to standard error at the end, and adds
+``scan_graphs`` to the JSON line: how many of the local mapper's
+scan-to-map calls captured CUDA graphs, replayed them or ran eagerly.
 """
 
 from __future__ import annotations
@@ -182,6 +184,10 @@ def run(args) -> dict:
         result["last_failure"] = system.estimator.solve_info["failure"]
     if system.global_mapper is not None:
         result["mapping"] = system.global_mapper.mapping_stats()
+    if args.trace_summary and system.local_mapper is not None:
+        g = system.local_mapper.scan_graphs
+        result["scan_graphs"] = dict(captures=g.captures, replays=g.replays,
+                                     eager=g.eager)
     if system.estimator.lidar is not None:
         result["lidar_modes"] = list(system.estimator.lidar.mode_counts)
     result["solver"] = {

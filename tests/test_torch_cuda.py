@@ -52,6 +52,7 @@ packages; see tests/test_torch_lidar_frontend.py).  The depth register on the ca
 within 1e-4 m of the CPU's, one wait per lookup.
 """
 
+import dataclasses
 import warnings
 
 import numpy as np
@@ -68,8 +69,8 @@ from mvil_fusion_torch.frontend.lidar_compensator import LidarCompensator
 from mvil_fusion_torch.io.synthetic import SyntheticTrajectory
 from mvil_fusion_torch.io.synthetic_lidar import BoxWorld, simulate_sweep
 from mvil_fusion_torch.mapping.global_mapping import GlobalMapper
-from mvil_fusion_torch.mapping.local_mapping import LocalMapper
-from mvil_fusion_torch.ops import deskew
+from mvil_fusion_torch.mapping.local_mapping import DEVICE_STATE, LocalMapper
+from mvil_fusion_torch.ops import deskew, loam_icp
 from mvil_fusion_torch.ops import knn_topk as K
 from mvil_fusion_torch.ops import preintegration as pre
 from mvil_fusion_torch.ops import ransac, scancontext, triangulate, voxel
@@ -293,6 +294,9 @@ def test_deferred_sweep_queues_without_host_sync(cuda):
             torch.cuda.set_sync_debug_mode("default")
     mapper.flush()
     assert len(mapper.trajectory) == 3
+    # the first sweep captured scan-to-map's graphs, the others replayed
+    g = mapper.scan_graphs
+    assert (g.captures, g.replays, g.eager) == (1, 2, 0)
 
 
 def test_deferred_mode_on_card(cuda):
@@ -302,6 +306,143 @@ def test_deferred_mode_on_card(cuda):
     pos_d, subs_d, _ = _drive(cuda, defer=True)
     assert subs_d == subs_s
     assert np.abs(pos_d - pos_s).max() < 1e-2
+
+
+def _graphed_sweeps(device, n, defer):
+    """n of `_drive`'s sweeps through a mapper whose scan-to-map replays as
+    CUDA graphs, with a submap every 3 sweeps (each resets the map).  Once
+    the first call has captured the graphs, a wrapper of
+    ``loam_icp.knn`` goes in, as the benchmark's feed puts one, and each
+    later call is made again eagerly, on the same stream, on clones of its
+    tensors.  Returns, for each later call, (the graphed call's tensors,
+    the eager call's, the kernel launches of the graphed call, its k-NN
+    calls, the eager call's) as (n_query, n_ref, k, live refs), and the
+    mapper."""
+    cfg = SystemConfig()
+    cfg = dataclasses.replace(cfg, local_mapping=dataclasses.replace(
+        cfg.local_mapping, submap_trigger_frames=3))
+    comp = LidarCompensator(cfg, device=device)
+    mapper = LocalMapper(cfg, device=device)
+    mapper.defer_pack = defer
+    graphs, knn, calls, seen = mapper.scan_graphs, loam_icp.knn, [], []
+
+    def counted(query, ref, ref_mask, k):
+        seen.append((query.shape[0], ref.shape[0], k, int(ref_mask.sum())))
+        return knn(query, ref, ref_mask, k)
+
+    def both(*args, **kw):
+        if graphs.captures == 0:
+            out = graphs(*args, **kw)
+            loam_icp.knn = counted
+            return out
+        tensors = [None if a is None else a.clone() for a in (
+            *args[:8], kw["surf_i"], kw["surf_map_i"], *args[8:10],
+            *kw["finish_args"])]
+        seen.clear()
+        before = K.knn_topk_cuda.launches
+        out = graphs(*args, **kw)
+        launches = K.knn_topk_cuda.launches - before
+        graphed_knn = list(seen)
+        seen.clear()
+        eager = loam_icp._eager(tensors, kw["outer_iters"], kw["gn_iters"],
+                                kw.get("max_corr_dist", 1.0), kw["finish"])
+        calls.append((out, eager, launches, graphed_knn, list(seen)))
+        return out
+
+    mapper.scan_graphs = both
+    rng = np.random.default_rng(0)
+    drift = np.zeros(3)
+    try:
+        for i in range(n):
+            t0 = 0.8 + 0.1 * i
+            s = simulate_sweep(BoxWorld(), TRAJ, t0, n_azimuth=480)
+            drift += rng.normal(scale=0.01, size=3)
+            p0, q0 = TRAJ.pose_at(t0)
+            p1, q1 = TRAJ.pose_at(t0 + 0.1)
+            odom = [np.asarray(v, np.float32) for v in (p0 + drift, q0,
+                                                        p1 + drift, q1)]
+            sw = comp.process(t0, s["pts"], s["mask"])
+            pts = deskew.deskew_to_end(
+                sw.pts, sw.rel_time,
+                *[torch.as_tensor(v, device=device) for v in odom], 0.1)
+            mapper.process_full(t0 + 0.1, pts, sw.ring, sw.rel_time,
+                                sw.mask, None, odom[2], odom[3], n_rings=16,
+                                n_azimuth=480, scan_period=0.1)
+        mapper.flush()
+    finally:
+        loam_icp.knn = knn
+        mapper.scan_graphs = graphs
+    return calls, mapper
+
+
+@pytest.mark.parametrize("defer", [False, True], ids=["sync", "deferred"])
+def test_scan_graphs_replay_the_eager_call(cuda, defer):
+    """Eight sweeps, two submaps emitted and the map reset after each,
+    sync and deferred: every replayed call gives the eager call's pose,
+    correction and pack on the same tensors, bitwise or within 1e-6 (where
+    cuBLAS picks another kernel under capture), and the same counts.  The
+    graphs are captured once and replayed on every later sweep."""
+    calls, mapper = _graphed_sweeps(cuda, 8, defer)
+    g = mapper.scan_graphs
+    assert (g.captures, g.replays, g.eager) == (1, 7, 0)
+    assert mapper.submaps_emitted >= 2
+    assert len(calls) == 7
+    for graphed, eager, *_ in calls:
+        assert len(graphed) == len(eager) == 5
+        for a, b in zip(graphed, eager):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert torch.allclose(a, b, rtol=0.0, atol=1e-6)
+        assert torch.equal(graphed[4][7:9], eager[4][7:9])  # the counts
+    # a reset map fails the count gate, a full one passes it
+    counts = [float(e[4][7] + e[4][8]) for _, e, *_ in calls]
+    assert min(counts) < 50 <= max(counts)
+
+
+def test_knn_wrapper_after_capture_sees_the_eager_calls(cuda):
+    """A wrapper of ``loam_icp.knn`` put in after the graphs were captured,
+    as the benchmark's feed puts its own, sees six calls a sweep with the
+    eager call's (n_query, n_ref, k, live refs), and the kernel's launch
+    count still rises by six a sweep."""
+    calls, _ = _graphed_sweeps(cuda, 6, False)
+    assert len(calls) == 5
+    for _, _, launches, graphed, eager in calls:
+        assert launches == 6
+        assert len(graphed) == 6 and graphed == eager
+
+
+def test_scan_graphs_stay_out_of_a_callers_capture(cuda):
+    """A caller that captures a whole sweep, as profile_slice.py's busy_ms
+    does, gets scan-to-map's launches in its own graph: the stream is
+    capturing, so the call runs eagerly."""
+    cfg = SystemConfig()
+    comp = LidarCompensator(cfg, device=cuda)
+    mapper = LocalMapper(cfg, device=cuda)
+    mapper.defer_pack = True
+    staged = []
+    for i in range(3):
+        t0 = 0.8 + 0.1 * i
+        s = simulate_sweep(BoxWorld(), TRAJ, t0, n_azimuth=480)
+        sw = comp.process(t0, s["pts"], s["mask"])
+        odom = [torch.as_tensor(np.asarray(v, np.float32), device=cuda)
+                for v in (*TRAJ.pose_at(t0), *TRAJ.pose_at(t0 + 0.1))]
+        pts = deskew.deskew_to_end(sw.pts, sw.rel_time, *odom, 0.1)
+        staged.append((t0 + 0.1, pts, sw.ring, sw.rel_time, sw.mask, None,
+                       odom[2], odom[3]))
+    grid = dict(n_rings=16, n_azimuth=480, scan_period=0.1)
+    for x in staged[:2]:
+        mapper.process_full(*x, **grid)
+    mapper.flush()
+    # the graph reads the state the sweep starts from: keep it alive
+    state = [getattr(mapper, n) for n in DEVICE_STATE]
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: the deferred readback's pinned allocator queries its events
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        mapper.process_full(*staged[2], **grid)
+    graph.replay()
+    torch.cuda.synchronize()
+    g = mapper.scan_graphs
+    assert (g.captures, g.replays, g.eager) == (1, 1, 1)
+    del graph, state
 
 
 # ---------------------------------------------------------------------------

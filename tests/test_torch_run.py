@@ -108,6 +108,9 @@ def test_trace_summary_goes_to_stderr(short_bag, tmp_path, capsys):
                                        "self", "ms"]
     assert "local_map.compensate" in {r.split()[0] for r in table[head + 1:]}
     assert not TRACER.on and TRACER.drain() == []
+    # one scan-to-map call a mapped sweep, all eager on the CPU
+    assert result["scan_graphs"] == dict(captures=0, replays=0,
+                                         eager=result["midend_poses"])
 
 
 def test_runner_needs_a_card_by_default(short_bag):
