@@ -20,7 +20,10 @@ What differs from the reference's XLA program, by design:
 * the trial cost of a step is evaluated by residual-only paths
   (``factors.vision_cost`` and the like), without the Jacobians;
 * ``torch.linalg.eigh`` (twice per marginalization) waits for the card
-  to check that it converged: the only waits of a solve and slide.
+  to check that it converged: the only waits of a solve and slide; where
+  it did not, its answer is NaN, as the reference's is, and the frame
+  step that made the prior fails (``_eigh``); the reference's keeps the
+  NaN prior.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from mvil_fusion_torch.estimator import state as st
 from mvil_fusion_torch.ops import preintegration as pre
 from mvil_fusion_torch.utils.device import resolve_device
 from mvil_fusion_torch.utils.precision import full_precision
+from mvil_fusion_torch.utils.timing import TRACER
 
 ANCHOR_WEIGHT = 1e3     # the gauge anchor's weight
 
@@ -345,37 +349,39 @@ def solve_blocks(pose: st.WindowState, inv_depth: Sequence[torch.Tensor],
     n_acc = torch.zeros((), dtype=torch.int32, device=dev)
     cost0 = None
     for _ in range(iters):
-        J, r, costs = _dense_system(pose, dense)
-        if not dense_rows:
-            J = r = None
-        H, g, c_v, lms = zip(*(
-            _vision_block(v, f, focal, *((J, r) if k == 0 else ()))
-            for k, (v, f) in enumerate(zip(views(pose, inv), feats))))
-        H_pp, g_p = reduce(list(H)), reduce(list(g))
-        cost = _plus(reduce(list(c_v)), costs)
+        with TRACER.span("vio.assemble"):
+            J, r, costs = _dense_system(pose, dense)
+            if not dense_rows:
+                J = r = None
+            H, g, c_v, lms = zip(*(
+                _vision_block(v, f, focal, *((J, r) if k == 0 else ()))
+                for k, (v, f) in enumerate(zip(views(pose, inv), feats))))
+            H_pp, g_p = reduce(list(H)), reduce(list(g))
+            cost = _plus(reduce(list(c_v)), costs)
         if cost0 is None:
             cost0 = cost
 
-        # damped Schur step: each block reduces its own landmarks out
-        S_l, rhs_l, inv_ll = zip(*(_schur_part(
-            lm, mu.to(lm.H_ll.device, non_blocking=True), jitter)
-            for lm in lms))
-        dx, factored = solve_reduced(
-            _damped(H_pp, mu, jitter) - reduce(list(S_l)),
-            g_p - reduce(list(rhs_l)), dense.fix_mask, jitter)
-        pose_try = st.apply_delta(pose, dx)
-        inv_try = [x + _landmark_delta(lm, il,
-                                       dx.to(x.device, non_blocking=True))
-                   for x, lm, il in zip(inv, lms, inv_ll)]
-        cost_try = cost_at(pose_try, inv_try)
-        ok = factored & torch.isfinite(cost_try) & (cost_try < cost)
-        pose = st.WindowState(*(torch.where(ok, new, old)
-                                for new, old in zip(pose_try, pose)))
-        inv = [torch.where(ok.to(x.device, non_blocking=True), new, x)
-               for new, x in zip(inv_try, inv)]
-        mu = torch.where(ok, (mu * 0.4).clamp_min(1e-6),
-                         (mu * 6.0).clamp_max(1e3))
-        n_acc = n_acc + ok.to(torch.int32)
+        with TRACER.span("vio.lm_step"):
+            # damped Schur step: each block reduces its own landmarks out
+            S_l, rhs_l, inv_ll = zip(*(_schur_part(
+                lm, mu.to(lm.H_ll.device, non_blocking=True), jitter)
+                for lm in lms))
+            dx, factored = solve_reduced(
+                _damped(H_pp, mu, jitter) - reduce(list(S_l)),
+                g_p - reduce(list(rhs_l)), dense.fix_mask, jitter)
+            pose_try = st.apply_delta(pose, dx)
+            inv_try = [x + _landmark_delta(lm, il,
+                                           dx.to(x.device, non_blocking=True))
+                       for x, lm, il in zip(inv, lms, inv_ll)]
+            cost_try = cost_at(pose_try, inv_try)
+            ok = factored & torch.isfinite(cost_try) & (cost_try < cost)
+            pose = st.WindowState(*(torch.where(ok, new, old)
+                                    for new, old in zip(pose_try, pose)))
+            inv = [torch.where(ok.to(x.device, non_blocking=True), new, x)
+                   for new, x in zip(inv_try, inv)]
+            mu = torch.where(ok, (mu * 0.4).clamp_min(1e-6),
+                             (mu * 6.0).clamp_max(1e3))
+            n_acc = n_acc + ok.to(torch.int32)
     return SolveResult(state=(pose, tuple(inv)), cost0=cost0,
                        cost1=cost_at(pose, inv), n_accepted=n_acc)
 
@@ -383,6 +389,19 @@ def solve_blocks(pose: st.WindowState, inv_depth: Sequence[torch.Tensor],
 # ---------------------------------------------------------------------------
 # Marginalization
 # ---------------------------------------------------------------------------
+
+def _eigh(A: torch.Tensor):
+    """``torch.linalg.eigh``, its values and vectors NaN where it does not
+    converge, as the reference's ``jnp.linalg.eigh`` answers, instead of
+    raising out of the frame step.  The NaN prior that a marginalization
+    then makes fails that frame step's finite flag (``vio.frame_step``
+    covers the new prior), so the estimator reboots."""
+    try:
+        return torch.linalg.eigh(A)
+    except torch.linalg.LinAlgError:
+        nan = torch.full_like(A, float("nan"))
+        return nan[..., 0], nan
+
 
 def _schur_drop_first(A: torch.Tensor, b: torch.Tensor, nd: int,
                       jitter: float = 1e-8):
@@ -395,7 +414,7 @@ def _schur_drop_first(A: torch.Tensor, b: torch.Tensor, nd: int,
     br = b[nd:]
     # symmetric pseudo-solve via eigh (robust to rank deficiency, as the
     # reference does for Amm — marginalization_factor.cpp:274-290)
-    w, V = torch.linalg.eigh(Amm)
+    w, V = _eigh(Amm)
     w_inv = torch.where(w > 1e-8 * torch.max(w.abs()), 1.0 / w, 0.0)
     Amm_inv = (V * w_inv[None, :]) @ V.T
     A_new = Arr - Amr.T @ Amm_inv @ Amr
@@ -406,7 +425,7 @@ def _schur_drop_first(A: torch.Tensor, b: torch.Tensor, nd: int,
 def _sqrt_factor(A: torch.Tensor, b: torch.Tensor):
     """Eigen-decomposition square root: A = JᵀJ, r0 = J⁻ᵀ b
     (reference: marginalization_factor.cpp:292-301)."""
-    w, V = torch.linalg.eigh(A)
+    w, V = _eigh(A)
     thresh = 1e-8 * torch.max(w.abs()).clamp_min(1e-20)
     keep = w > thresh
     sqrt_w = torch.sqrt(torch.where(keep, w, 0.0))

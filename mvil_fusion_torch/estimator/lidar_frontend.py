@@ -41,6 +41,7 @@ from mvil_fusion_torch.ops import vgicp, voxel
 from mvil_fusion_torch.utils import lie
 from mvil_fusion_torch.utils.device import resolve_device, upload
 from mvil_fusion_torch.utils.precision import full_precision
+from mvil_fusion_torch.utils.timing import TRACER
 
 PACK_SIZE = 47
 
@@ -128,6 +129,27 @@ def sweep_full(pts, rel_time, mask, state_p, state_q, idx, alphas,
             pl_e, ql_e, p_be, q_be, pack)
 
 
+def lidar_in_body(rlb, tlb):
+    """The front end's extrinsic from the configuration's.
+
+    The configuration's ``lidar.rlb``/``lidar.tlb`` are the published
+    yaml's LiDAR-IMU extrinsic, named as ``ric``/``tic`` are: the body
+    (IMU) in the LiDAR's frame, R^l_b and t^l_b, so that a LiDAR pose
+    (R_l, p_l) gives the body's as (R_l rlb, p_l + R_l tlb), as the
+    localizer's feedback composes it (``VIOEstimator.process_lps``).  The
+    front end keeps the LiDAR in the body, R^b_l = rlbᵀ and t^b_l =
+    -rlbᵀ tlb, which `sweep_full` composes with a body pose and the
+    calibration estimates; its ``rlb``, ``tlb`` and ``q_lb`` are those.
+    (The JAX package's front end reads the configuration as the LiDAR in
+    the body, and its localizer feedback as the body in the LiDAR: with
+    the published extrinsic its C16 would spin about a horizontal axis.)
+    Returns float32 (R^b_l (3, 3), t^b_l (3,))."""
+    R_lb = np.asarray(rlb, np.float64).reshape(3, 3)
+    t_lb = np.asarray(tlb, np.float64)
+    return (R_lb.T.astype(np.float32),
+            (-R_lb.T @ t_lb).astype(np.float32))
+
+
 def lidar_align(q_l: torch.Tensor, t_l: torch.Tensor, t_b: torch.Tensor,
                 q_b: torch.Tensor, q_lb0: torch.Tensor,
                 plb_lower, plb_upper, iters: int = 40):
@@ -209,8 +231,7 @@ class LidarFrontend:
         self.cfg = cfg
         self.device = resolve_device(device)
         lc = cfg.lidar
-        self.rlb = np.asarray(lc.rlb, np.float32).reshape(3, 3)
-        self.tlb = np.asarray(lc.tlb, np.float32)
+        self.rlb, self.tlb = lidar_in_body(lc.rlb, lc.tlb)
         self.q_lb = lie.mat_to_quat(torch.as_tensor(self.rlb)).numpy()
         self.constraints: list[IcpRecord] = []
         self.prev: Optional[KeySweep] = None
@@ -258,8 +279,16 @@ class LidarFrontend:
         `pts`, `rel_time` and `mask` are tensors on the front end's device
         (the compensator's output) or host arrays.  A classified sweep
         waits for the card once (its pack), and not at all in deferred
-        mode.
+        mode.  Traced as the root span `lidar_odom.sweep` (request: the
+        sweep's end), the pack's fetch and classification as
+        `lidar_odom.harvest`.
         """
+        with TRACER.span("lidar_odom.sweep",
+                         rid=t_start + self.cfg.lidar.scan_period):
+            return self._process_sweep(t_start, pts, rel_time, mask,
+                                       window_times, s)
+
+    def _process_sweep(self, t_start, pts, rel_time, mask, window_times, s):
         lc = self.cfg.lidar
         self._harvest_pack()        # drain the previous sweep's deferred pack
         t_end = t_start + lc.scan_period
@@ -328,8 +357,9 @@ class LidarFrontend:
             out["mode"] = None        # known at harvest (self.last_mode)
             return out
 
-        hp = read_host_pack(pack)       # the sweep's single blocking readback
-        mode = self._apply_sweep_pack(hp, prev, cur)
+        with TRACER.span("lidar_odom.harvest"):
+            hp = read_host_pack(pack)   # the sweep's single blocking readback
+            mode = self._apply_sweep_pack(hp, prev, cur)
         out["mode"] = mode
         self.prev = cur
         return out
@@ -340,9 +370,10 @@ class LidarFrontend:
             return
         (host, done), prev, cur = self._pending_pack
         self._pending_pack = None
-        if done is not None:
-            done.synchronize()
-        self._apply_sweep_pack(host.numpy(), prev, cur)
+        with TRACER.span("lidar_odom.harvest"):
+            if done is not None:
+                done.synchronize()
+            self._apply_sweep_pack(host.numpy(), prev, cur)
 
     def _apply_sweep_pack(self, hp: np.ndarray, prev: KeySweep,
                           cur: KeySweep) -> int:

@@ -44,6 +44,7 @@ from mvil_fusion_torch.ops import triangulate as tri
 from mvil_fusion_torch.utils import lie
 from mvil_fusion_torch.utils.device import resolve_device, work_event
 from mvil_fusion_torch.utils.precision import full_precision, set_fp32_policy
+from mvil_fusion_torch.utils.timing import TRACER
 
 # host_pack layout: metrics(5) cost(1) p(3) q(4) v(3) tic(3) qic(4) td(1)
 # bg(3) inv_depth(F)
@@ -55,7 +56,7 @@ def frame_step(state, feats, need_depth, accs, gyrs, dts, imu_masks,
                prior, gravity, noise_cov, icp_tab, lps_tab, zero_vel,
                fix_mask, focal, iters, marg_old):
     """One keyframe: preintegration → triangulation of new landmarks →
-    extras → window BA → failure metrics → marginalization.
+    extras → window BA → marginalization → failure metrics.
 
     `iters` and `marg_old` are Python values.  Returns (s_new, prior_new,
     metrics (5,), cost1, host_pack (27 + F,)).
@@ -79,19 +80,26 @@ def frame_step(state, feats, need_depth, accs, gyrs, dts, imu_masks,
     res = ba.solve(state, prob, focal, iters=iters)
     s_new = _gauge_fix(state, res.state)
 
+    with TRACER.span("vio.marginalize"):
+        if marg_old:
+            prior_new = ba.marginalize_old(s_new, prob, focal)
+        else:
+            prior_new = ba.marginalize_second_new(s_new, prob)
+
+    # the finite flag covers the new prior too: a marginalization whose
+    # eigh did not converge leaves it NaN (``ba._eigh``), and the solve
+    # then fails, so the estimator reboots instead of carrying a prior
+    # that rejects every later step
     prev_p = state.p[-1]
+    finite = torch.isfinite(torch.sum(s_new.p) + torch.sum(prior_new.J)
+                            + torch.sum(prior_new.r0))
     metrics = torch.stack([
         torch.linalg.vector_norm(s_new.ba[-1]),
         torch.linalg.vector_norm(s_new.bg[-1]),
         torch.linalg.vector_norm(s_new.p[-1] - prev_p),
         torch.abs(s_new.p[-1, 2] - prev_p[2]),
-        torch.isfinite(torch.sum(s_new.p)).to(s_new.p.dtype),
+        finite.to(s_new.p.dtype),
     ])
-
-    if marg_old:
-        prior_new = ba.marginalize_old(s_new, prob, focal)
-    else:
-        prior_new = ba.marginalize_second_new(s_new, prob)
 
     host_pack = torch.cat([
         metrics, res.cost1[None], s_new.p[-1], s_new.q[-1], s_new.v[-1],
@@ -354,6 +362,11 @@ class VIOEstimator:
         self._iters_current = e.max_solver_iters
         self._headroom = 0
         self._solves = 0
+        # counters of the host's own bookkeeping (no device read), kept
+        # across reboots: keyframe solves and the LM iterations they ran
+        # (the loop runs a fixed count, `_iters_current`)
+        self.solves = 0
+        self.lm_iters = 0
         self.budget_overruns = 0
         self.enforce_budget = False
         NM, MI, ML = self.imu_nmax, lfac.MAX_ICP, lfac.MAX_LPS
@@ -401,6 +414,12 @@ class VIOEstimator:
         self._state_ready = (s, work_event(s.p.device))
 
     @property
+    def reboots(self) -> int:
+        """The counter of reboots: each failed solve's `_reboot`, the
+        same count as `failures`."""
+        return self.failures
+
+    @property
     def state_ready(self):
         """(state, event): the window state and, on the card, an event
         recorded on the writer's stream after its last write (None on the
@@ -434,16 +453,19 @@ class VIOEstimator:
     def process_lps(self, t: float, p_w: np.ndarray, q_w: np.ndarray):
         """Global-mapping localizer feedback ('LPS', reference
         estimator_node.cpp:442-460).  Pose given in the lidar frame is
-        transformed by the LiDAR-IMU extrinsic of the LiDAR front end;
-        without one the message is dropped, as in the reference."""
+        transformed by the LiDAR-IMU extrinsic of the LiDAR front end
+        (the LiDAR in the body, ``lidar_frontend.lidar_in_body``): the
+        body is at (R_l R_blᵀ, p_l - R_l R_blᵀ t_bl); without a front end
+        the message is dropped, as in the reference."""
         if self.lidar is None:
             return
-        rlb, tlb = self.lidar.rlb, self.lidar.tlb
+        R_lb = np.asarray(self.lidar.rlb, np.float32).T
+        t_lb = -R_lb @ np.asarray(self.lidar.tlb, np.float32)
         R = lie.quat_to_mat(torch.as_tensor(np.asarray(q_w,
                                                        np.float32))).numpy()
-        p_b = R @ tlb + np.asarray(p_w)
+        p_b = R @ t_lb + np.asarray(p_w)
         q_b = lie.mat_to_quat(torch.as_tensor(
-            (R @ rlb).astype(np.float32))).numpy()
+            (R @ R_lb).astype(np.float32))).numpy()
         self.lps_list.append((t, p_b.astype(np.float32), q_b))
         while len(self.lps_list) > lfac.MAX_LPS:
             self.lps_list.pop(0)
@@ -559,7 +581,8 @@ class VIOEstimator:
             self.intervals.append(self._close_interval())
 
         # 2. keyframe decision
-        self.marg_old = self._check_parallax(k)
+        with TRACER.span("vio.parallax", rid=t):
+            self.marg_old = self._check_parallax(k)
 
         if k < self.W - 1:
             self.frame_count += 1
@@ -567,7 +590,9 @@ class VIOEstimator:
 
         # window is full (frames 0..W-1 present)
         if self.status == self.INITIAL:
-            if self._try_initialize():
+            with TRACER.span("vio.init", rid=self.times[-1]):
+                initialized = self._try_initialize()
+            if initialized:
                 self.status = self.NON_LINEAR
                 self._solve_and_slide()
             else:
@@ -714,8 +739,18 @@ class VIOEstimator:
     def _fill_feature_tables(self, start, obs, vel, td_ref, mask, fixed,
                              valid, ov_val, ov_mask, need_depth=None):
         """Write the per-slot feature tables into the given arrays (host
-        views of the frame tables, or scratch arrays for the init path)."""
+        views of the frame tables, or scratch arrays for the init path).
+
+        A track first seen in the window's newest two frames stays out of
+        the solve and of triangulation (not `valid`, no `need_depth`), as
+        in the published estimator (``start_frame < WINDOW_SIZE - 2`` in
+        VINS-Mono's ``optimization`` and ``triangulate``): triangulated
+        against the newest frame's pose before that pose is solved (a copy
+        of the frame before it), its depth is arbitrary, and the
+        Cauchy-bounded cost keeps it.  The JAX package lets such tracks in;
+        this is a deliberate divergence from it."""
         W = self.W
+        lag = W - 2
         for s, fid in enumerate(self.slots):
             if fid is None:
                 continue
@@ -728,12 +763,13 @@ class VIOEstimator:
                     td_ref[s, k] = o.td_ref
                     mask[s, k] = True
             fixed[s] = tr.depth_fixed
-            valid[s] = mask[s].sum() >= 2
+            valid[s] = mask[s].sum() >= 2 and tr.start < lag
             if tr.inv_depth > 0:
                 ov_val[s] = tr.inv_depth
                 ov_mask[s] = True
             if need_depth is not None:
-                need_depth[s] = tr.inv_depth <= 0 and not tr.depth_fixed
+                need_depth[s] = (tr.inv_depth <= 0 and not tr.depth_fixed
+                                 and tr.start < lag)
 
     def _build_features(self) -> st.Features:
         """Standalone feature-table build (initialization path; the
@@ -962,34 +998,55 @@ class VIOEstimator:
     # ------------------------------------------------------- solve + slide
 
     def _solve_and_slide(self):
+        with TRACER.span("vio.frame", rid=self.times[-1]):
+            self._solve_and_slide_traced()
+
+    def _solve_and_slide_traced(self):
+        """One keyframe's solve and slide, its parts as the spans
+        `vio.tables` (slot assignment, table fills and, inside it,
+        `vio.upload`), `vio.step`, `vio.readback` (the pack's fetch, or
+        the deferred harvest) and `vio.slide` inside `vio.frame`."""
         W = self.W
         e = self.cfg.estimator
-        if self.defer_readback and not self._harvest_solve():
-            return      # deferred failure detected -> rebooted, skip frame
-        self._assign_slots()
-        tab = self._tables
-        tab.zero()
-        self._fill_feature_tables(
-            tab["start"], tab["obs"], tab["vel"], tab["td_ref"], tab["mask"],
-            tab["depth_fixed"], tab["valid"], tab["ov_val"], tab["ov_mask"],
-            need_depth=tab["need_depth"])
-        self._fill_imu_tables(tab["accs"], tab["gyrs"], tab["dts"],
-                              tab["imu_masks"])
-        if self.lidar is not None:
-            if not self.lidar.defer_pack:
-                self.lidar._harvest_pack()
-            tab["zero_vel"][0] = self.lidar.fill_constraint_tables(
-                self.times[:W], tab["icp_ids"], tab["icp_ai"], tab["icp_aj"],
-                tab["icp_tp"], tab["icp_w"], tab["icp_act"])
-            self._fill_lps_tables(tab["lps_ids"], tab["lps_alpha"],
-                                  tab["lps_qm"], tab["lps_act"])
-        else:
-            tab["lps_qm"][:, 0] = 1.0
+        if self.defer_readback:
+            with TRACER.span("vio.readback"):
+                harvested = self._harvest_solve()
+            if not harvested:
+                return  # deferred failure detected -> rebooted, skip frame
+        with TRACER.span("vio.tables"):
+            self._assign_slots()
+            tab = self._tables
+            tab.zero()
+            self._fill_feature_tables(
+                tab["start"], tab["obs"], tab["vel"], tab["td_ref"],
+                tab["mask"], tab["depth_fixed"], tab["valid"], tab["ov_val"],
+                tab["ov_mask"], need_depth=tab["need_depth"])
+            self._fill_imu_tables(tab["accs"], tab["gyrs"], tab["dts"],
+                                  tab["imu_masks"])
+            if self.lidar is not None:
+                if not self.lidar.defer_pack:
+                    self.lidar._harvest_pack()
+                tab["zero_vel"][0] = self.lidar.fill_constraint_tables(
+                    self.times[:W], tab["icp_ids"], tab["icp_ai"],
+                    tab["icp_aj"], tab["icp_tp"], tab["icp_w"],
+                    tab["icp_act"])
+                self._fill_lps_tables(tab["lps_ids"], tab["lps_alpha"],
+                                      tab["lps_qm"], tab["lps_act"])
+            else:
+                tab["lps_qm"][:, 0] = 1.0
+            with TRACER.span("vio.upload"):
+                d = tab.upload()
+            # tracks kept out of the solve keep their host depth
+            held = {fid for s, fid in enumerate(self.slots)
+                    if fid is not None and not tab["valid"][s]}
 
         prior_valid_host = bool(self._prior_valid)
         t0_solve = time.perf_counter()
-        s_new, prior_new, _, _, host_pack = self._frame_step(tab.upload())
+        with TRACER.span("vio.step"):
+            s_new, prior_new, _, _, host_pack = self._frame_step(d)
         self._solves += 1
+        self.solves += 1
+        self.lm_iters += self._iters_current
 
         if self.defer_readback:
             # start the copy to the host and harvest at the next keyframe;
@@ -997,20 +1054,22 @@ class VIOEstimator:
             # host mirrors lag one frame)
             self._pending_solve = (start_host_pack_copy(host_pack),
                                    self.times[-1])
-            self._rerooted_pending = set()
+            self._rerooted_pending = held
             self.state = s_new
-            if self.marg_old:
-                self.prior = prior_new
-                self._prior_valid = True
-                self._slide(old=True)
-            else:
-                if prior_valid_host:
+            with TRACER.span("vio.slide"):
+                if self.marg_old:
                     self.prior = prior_new
-                self._slide(old=False)
+                    self._prior_valid = True
+                    self._slide(old=True)
+                else:
+                    if prior_valid_host:
+                        self.prior = prior_new
+                    self._slide(old=False)
             return
 
         # ONE blocking readback per frame
-        hp = read_host_pack(host_pack)
+        with TRACER.span("vio.readback"):
+            hp = read_host_pack(host_pack)
         self._update_iter_budget(time.perf_counter() - t0_solve)
         ban, bgn, dp, dz, finite = hp[0:5]
         self.solve_info["ban"] = float(ban)
@@ -1024,17 +1083,18 @@ class VIOEstimator:
             return
 
         self.state = s_new
-        self._apply_host_pack(hp, self.times[-1], set())
+        self._apply_host_pack(hp, self.times[-1], held)
 
         # marginalize + slide (the prior was computed inside the step)
-        if self.marg_old:
-            self.prior = prior_new
-            self._prior_valid = True
-            self._slide(old=True)
-        else:
-            if prior_valid_host:
+        with TRACER.span("vio.slide"):
+            if self.marg_old:
                 self.prior = prior_new
-            self._slide(old=False)
+                self._prior_valid = True
+                self._slide(old=True)
+            else:
+                if prior_valid_host:
+                    self.prior = prior_new
+                self._slide(old=False)
 
     def _frame_step(self, d: dict):
         """`frame_step` on the uploaded tables `d`, after the host-known
@@ -1059,8 +1119,9 @@ class VIOEstimator:
     def _apply_host_pack(self, hp: np.ndarray, t_frame: float,
                          rerooted: set):
         """Host mirrors, depth mirrors, trajectory and ex_results from a
-        solve's pack (after its failure check).  Tracks re-rooted since
-        the solve keep their reset depth."""
+        solve's pack (after its failure check).  Tracks in `rerooted`
+        (re-rooted since the solve, or kept out of it) keep their host
+        depth."""
         p_h, q_h, v_h = hp[6:9], hp[9:13], hp[13:16]
         tic_h, qic_h, td_h = hp[16:19], hp[19:23], float(hp[23])
         inv_h = hp[HOST_PACK_HEAD:]
@@ -1168,8 +1229,11 @@ class VIOEstimator:
             td = float(self.state.td)
         vi_ypr = _np_quat_to_ypr(np.asarray(qic, np.float64))
         if self.lidar is not None:
-            li_ypr = _np_mat_to_ypr(np.asarray(self.lidar.rlb, np.float64))
-            li_t = np.asarray(self.lidar.tlb)
+            # in the configuration's convention: the body in the LiDAR
+            R_lb = np.asarray(self.lidar.rlb, np.float64).T
+            li_ypr = _np_mat_to_ypr(R_lb)
+            li_t = (-R_lb @ np.asarray(self.lidar.tlb, np.float64)).astype(
+                np.asarray(self.lidar.tlb).dtype)
         else:
             li_ypr = np.zeros(3, np.float32)
             li_t = np.zeros(3, np.float32)
@@ -1189,14 +1253,16 @@ class VIOEstimator:
         histogram."""
         failures = self.failures + 1
         keep = (self.trajectory, self.ex_results, self.solve_info,
-                self.defer_readback, self.hypothesis_source)
+                self.defer_readback, self.hypothesis_source, self.solves,
+                self.lm_iters)
         keep_qic, keep_tic = self.state.qic, self.state.tic
         lidar_prev = self.lidar
         self.__init__(self.cfg, self.device, self._generator_arg)
         self.state = self.state._replace(qic=keep_qic, tic=keep_tic)
         self.failures = failures
         (self.trajectory, self.ex_results, self.solve_info,
-         self.defer_readback, self.hypothesis_source) = keep
+         self.defer_readback, self.hypothesis_source, self.solves,
+         self.lm_iters) = keep
         if lidar_prev is not None:
             self.enable_lidar()
             self.lidar.rlb = lidar_prev.rlb

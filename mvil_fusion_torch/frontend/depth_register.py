@@ -25,6 +25,7 @@ from mvil_fusion_torch.config import SystemConfig
 from mvil_fusion_torch.utils import lie
 from mvil_fusion_torch.utils.device import resolve_device, upload
 from mvil_fusion_torch.utils.precision import full_precision
+from mvil_fusion_torch.utils.timing import TRACER
 
 N_CLOUDS = 8           # ring slots (≈ 5 s at the reference's 5 Hz feed)
 CLOUD_PTS = 8192       # per-cloud padded capacity (estimator's down.pts)
@@ -122,6 +123,10 @@ class DepthRegister:
                       torch.zeros((N_CLOUDS, CLOUD_PTS), dtype=torch.bool,
                                   device=dev),
                       np.full(N_CLOUDS, -np.inf), None)
+        # counters of `get_depth`'s host path: the valid features looked
+        # up and those given a depth (read from its readback)
+        self.lookups = 0
+        self.features_with_depth = 0
 
     def _up(self, x, dtype=torch.float32) -> torch.Tensor:
         return upload(x, self.device, dtype)
@@ -134,14 +139,20 @@ class DepthRegister:
     def add_cloud(self, t: float, pts_l, mask=None, p_l=None, q_l=None):
         """Deskewed cloud + lidar pose (device tensors): rolled into the
         world-frame ring on the device, with no readback.  Host callers
-        may pass a bare world-frame (M,3) numpy cloud (mask/pose omitted)."""
+        may pass a bare world-frame (M,3) numpy cloud (mask/pose omitted).
+        Traced as `depth.add_cloud`."""
+        with TRACER.span("depth.add_cloud", rid=t):
+            self._add_cloud(t, pts_l, mask, p_l, q_l)
+
+    def _add_cloud(self, t, pts_l, mask, p_l, q_l):
         if mask is None or p_l is None:
             # host world-frame cloud: chunk across ring slots if oversized
             arr = np.asarray(pts_l, np.float32)
             if len(arr) > CLOUD_PTS:
                 for k in range(0, min(len(arr), CLOUD_PTS * N_CLOUDS),
                                CLOUD_PTS):
-                    self.add_cloud(t, arr[k:k + CLOUD_PTS])
+                    self._add_cloud(t, arr[k:k + CLOUD_PTS], None, None,
+                                    None)
                 return
             pts_np = np.zeros((CLOUD_PTS, 3), np.float32)
             n = len(arr)
@@ -167,17 +178,25 @@ class DepthRegister:
                   feat_valid: np.ndarray, p_wc: np.ndarray,
                   q_wc: np.ndarray) -> np.ndarray:
         """Depths for the current features given the camera pose T_w_c:
-        the lookup's work queued, then one readback."""
-        depth = self.get_depth_device(t_img, feat_norm, feat_valid,
-                                      p_wc, q_wc)
-        if depth is None:
-            return np.full(len(feat_norm), -1.0, np.float32)
-        return depth.cpu().numpy()
+        the lookup's work queued, then one readback.  Traced as
+        `depth.lookup`; counted in `lookups` and `features_with_depth`."""
+        with TRACER.span("depth.lookup", rid=t_img):
+            depth = self._lookup(t_img, feat_norm, feat_valid, p_wc, q_wc)
+            depth = np.full(len(feat_norm), -1.0, np.float32) \
+                if depth is None else depth.cpu().numpy()
+        self.lookups += int(np.count_nonzero(feat_valid))
+        self.features_with_depth += int(np.count_nonzero(depth > 0))
+        return depth
 
     def get_depth_device(self, t_img: float, feat_norm, feat_valid,
                          p_wc, q_wc):
         """Enqueue-only depth lookup: a device (F,) depth tensor, or None
-        when no cloud is live."""
+        when no cloud is live.  Traced as `depth.lookup`; not counted
+        (counting would wait for the card)."""
+        with TRACER.span("depth.lookup", rid=t_img):
+            return self._lookup(t_img, feat_norm, feat_valid, p_wc, q_wc)
+
+    def _lookup(self, t_img, feat_norm, feat_valid, p_wc, q_wc):
         bufs, masks, slot_t, written = self._snap   # one consistent snapshot
         slot_ok = np.isfinite(slot_t) & (slot_t > t_img - self.window_sec)
         if not slot_ok.any():

@@ -110,8 +110,11 @@ With --vio it profiles mono VIO end to end instead: VIOEstimator on
 cuda:0 over the stream of chip_smoke.py's phase 11 (55 frames, 256 feature
 slots, sync readback):
 
-1. wall: ms per steady-state keyframe split into its parts, each part
-   timed on the host clock with the device drained at its end: intake
+1. wall: ms per steady-state keyframe split into its parts, read from
+   the estimator's own spans (utils/timing.py::TRACER; host clock, the
+   device drained only at the end of each frame, so that a part's time
+   is the host's time to enqueue its work, and the card's time behind
+   it lands in the part that waits for it: the readback): intake
    (the IMU samples and the frame's observations, the IMU interval), the
    keyframe decision (_check_parallax), slot assignment and table fills,
    the tables' upload, frame_step, the readback, the slide with its track
@@ -120,9 +123,9 @@ slots, sync readback):
    essential-matrix candidates, SfM with its BA, stage A, linear
    alignment, stage B, and the rest: preintegration, the gravity
    alignment, triangulation);
-2. profile: a second run of frames 1–13, each part of the init attempt's
-   frame and of frame 13 under its own torch.profiler: kernel launches,
-   device ms and host syncs per part;
+2. profile: a second run of frames 1–13, the init attempt's frame and
+   frame 13 each under one torch.profiler: kernel launches and device
+   ms per part, by the spans' annotations, and the frame's host syncs;
 3. again: the init attempts again, by stage (the host clock around each
    stage's function), on the card (the kernels it uses loaded by then)
    and with the estimator on the host's CPU: what moving the init chain
@@ -748,6 +751,10 @@ def frame_step_profile(torch, card) -> None:
 
 VIO_PARTS = ("check_parallax", "table fills", "upload", "frame_step",
              "readback", "slide")
+# the estimator's spans (utils/timing.py::TRACER) of each part
+VIO_SPANS = {"vio.parallax": "check_parallax", "vio.tables": "table fills",
+             "vio.upload": "upload", "vio.step": "frame_step",
+             "vio.readback": "readback", "vio.slide": "slide"}
 INIT_STAGES = (("essential", "essential_relative_pose"),
                ("sfm", "global_sfm"), ("stage_a", "estimate_ric_td_bg"),
                ("linear", "linear_alignment"),
@@ -755,42 +762,93 @@ INIT_STAGES = (("essential", "essential_relative_pose"),
 SFM_PARTS = (("sfm: pnp", "pnp"), ("sfm: BA", "_sfm_ba"))
 
 
-def instrument_vio(est, around, stages=INIT_STAGES):
-    """Route each part of est's keyframes and each of the init attempts'
-    `stages` (part, function of initialization.py) through around(part,
-    fn, *args).  Returns a function that undoes the module-level part of
-    it."""
+def vio_parts(records):
+    """ms by part of VIO_PARTS in the estimator's tracer records: each
+    part's spans, less the spans of a part inside them (the upload inside
+    the table fills)."""
+    out = collections.Counter()
+    for r in records:
+        part = VIO_SPANS.get(r.name)
+        if part is None:
+            continue
+        ms = (r.t1_ns - r.t0_ns) / 1e6
+        out[part] += ms
+        if r.parent is not None and records[r.parent].name in VIO_SPANS:
+            out[VIO_SPANS[records[r.parent].name]] -= ms
+    return out
+
+
+def instrument_init(around, stages=INIT_STAGES):
+    """Route each of the init attempts' `stages` (part, function of
+    initialization.py) through around(part, fn, *args).  Returns a
+    function that undoes it."""
     from mvil_fusion_torch.estimator import initialization as vinit
-    from mvil_fusion_torch.estimator import vio
-    wrap = lambda part, fn: (  # noqa: E731
-        lambda *a, **k: around(part, fn, *a, **k))
-    est._check_parallax = wrap("check_parallax", est._check_parallax)
-    for name in ("_assign_slots", "_fill_feature_tables",
-                 "_fill_imu_tables"):
-        setattr(est, name, wrap("table fills", getattr(est, name)))
-    est._tables.upload = wrap("upload", est._tables.upload)
-    est._frame_step = wrap("frame_step", est._frame_step)
-    est._slide = wrap("slide", est._slide)
-    saved = [(vio, "read_host_pack", vio.read_host_pack)]
-    vio.read_host_pack = wrap("readback", vio.read_host_pack)
+    saved = []
     for stage, fn in stages:
-        saved.append((vinit, fn, getattr(vinit, fn)))
-        setattr(vinit, fn, wrap(stage, getattr(vinit, fn)))
+        orig = getattr(vinit, fn)
+        saved.append((fn, orig))
+        setattr(vinit, fn, lambda *a, _s=stage, _f=orig, **k: around(
+            _s, _f, *a, **k))
 
     def undo():
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
+        for name, fn in saved:
+            setattr(vinit, name, fn)
     return undo
 
 
+def profile_parts(torch, fn):
+    """fn() under torch.profiler with the estimator's tracer on: {part:
+    [kernel launches, device ms]} by the vio.* spans' annotations (and
+    those of the init stages that `fn` annotates), a part less the parts
+    inside it."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    from mvil_fusion_torch.utils.timing import TRACER
+    names = dict(VIO_SPANS, **{k: k for k, _ in INIT_STAGES + SFM_PARTS})
+    torch.cuda.synchronize()
+    TRACER.enable()
+    try:
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        TRACER.disable()
+        TRACER.drain()
+    events = prof.events()
+    launches = sorted(e.time_range.start for e in events if e.name.startswith(
+        ("cudaLaunchKernel", "cuLaunchKernel")))
+    notes = [e for e in events if e.name in names]
+
+    def inside(o, e):
+        return (o is not e and e.time_range.start <= o.time_range.start
+                and o.time_range.end <= e.time_range.end)
+    out = collections.defaultdict(lambda: [0, 0.0])
+    for e in notes:
+        n = sum(1 for t in launches
+                if e.time_range.start <= t <= e.time_range.end)
+        ms = e.device_time_total / 1e3
+        out[names[e.name]][0] += n
+        out[names[e.name]][1] += ms
+        # and less from the innermost part around it
+        around = [o for o in notes if inside(e, o)]
+        if around:
+            parent = min(around, key=lambda o: o.time_range.elapsed_us())
+            out[names[parent.name]][0] -= n
+            out[names[parent.name]][1] -= ms
+    return out
+
+
 def vio_profile(torch, card) -> None:
-    """--vio: mono VIO end to end by part of a keyframe and stage of an
-    init attempt."""
+    """--vio: mono VIO end to end by part of a keyframe (the estimator's
+    vio.* spans) and stage of an init attempt."""
     from mvil_fusion_torch.estimator.vio import VIOEstimator
+    from mvil_fusion_torch.utils.timing import TRACER
     cfg = smoke.sequence_config()
     frames = smoke.vio_sequence(smoke.sequence_world(), cfg)
 
-    # 1. wall by part, device drained at the end of each part
+    # 1. wall by part: the spans' host clock, the device drained at the
+    # end of each frame and of each init stage
     est = VIOEstimator(cfg)
     spent = collections.Counter()
 
@@ -800,33 +858,37 @@ def vio_profile(torch, card) -> None:
         torch.cuda.synchronize()
         spent[part] += 1e3 * (time.perf_counter() - t)
         return out
-    undo = instrument_vio(est, timed, INIT_STAGES + SFM_PARTS)
+    undo = instrument_init(timed, INIT_STAGES + SFM_PARTS)
     rows, init_row = [], None
+    TRACER.enable()
     try:
         for f in frames:
             steady = est.status == est.NON_LINEAR
             spent.clear()
+            TRACER.drain()
             torch.cuda.synchronize()
             t = time.perf_counter()
             smoke.feed(est, f)
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t)
-            row = dict(spent, wall=wall)
+            row = dict(spent, **vio_parts(TRACER.drain()), wall=wall)
             if steady:
                 rows.append(row)
             elif "essential" in spent:
                 init_row = row
     finally:
         undo()
+        TRACER.disable()
+        TRACER.drain()
     smoke.check(est.status == est.NON_LINEAR and len(rows) > 40,
                 f"{len(rows)} steady-state keyframes")
     med = {k: statistics.median(r.get(k, 0.0) for r in rows)
            for k in ("wall",) + VIO_PARTS}
     rest = [r["wall"] - sum(r.get(k, 0.0) for k in VIO_PARTS) for r in rows]
     print(f"wall: {len(rows)} steady-state keyframes, ms per keyframe "
-          f"(median, host clock, device drained after each part): whole "
-          f"{med['wall']:.1f}; " + ", ".join(
-              f"{k} {med[k]:.2f}" for k in VIO_PARTS)
+          f"(median, host clock of the estimator's spans, device drained "
+          f"at the end of each frame): whole {med['wall']:.1f}; "
+          + ", ".join(f"{k} {med[k]:.2f}" for k in VIO_PARTS)
           + f", intake and the rest {statistics.median(rest):.2f} [{card}]",
           flush=True)
     if init_row is not None:
@@ -840,44 +902,34 @@ def vio_profile(torch, card) -> None:
                   f"{k[5:]} {init_row.get(k, 0.0):.1f}" for k, _ in SFM_PARTS)
               + f" [{card}]", flush=True)
 
-    # 2. launches, device ms and host syncs by part, each part of the init
-    # frame and of keyframe 12 under its own profiler
+    # 2. launches and device ms by part, the init attempt's frame and
+    # frame 13 each under one torch.profiler (the init stages annotated)
     est = VIOEstimator(cfg)
-    prof = collections.defaultdict(lambda: [0, 0.0, 0])
 
-    def profiled(part, fn, *a, **k):
-        box = []
-        launches, dev_ms, _ = smoke.profile_device(torch, lambda: box.append(
-            smoke.count_syncs(torch, lambda: fn(*a, **k))))
-        result, syncs = box[0]
-        prof[part][0] += launches
-        prof[part][1] += dev_ms
-        prof[part][2] += syncs
-        return result
-    active = [False]
-
-    def when_active(part, fn, *a, **k):
-        if active[0]:
-            return profiled(part, fn, *a, **k)
-        return fn(*a, **k)
-    undo = instrument_vio(est, when_active)
+    def annotated(part, fn, *a, **k):
+        with torch.profiler.record_function(part):
+            return fn(*a, **k)
+    undo = instrument_init(annotated)
     try:
         for i, f in enumerate(frames[:13]):
             initial = est.status == est.INITIAL
-            active[0] = i == 12 or (initial
-                                    and i >= cfg.estimator.window_size)
-            prof.clear()
-            smoke.feed(est, f)
-            if active[0] and (i == 12 or "essential" in prof):
+            if not (i == 12 or (initial
+                                and i >= cfg.estimator.window_size)):
+                smoke.feed(est, f)
+                continue
+            prof, syncs = smoke.count_syncs(
+                torch, lambda f=f: profile_parts(
+                    torch, lambda: smoke.feed(est, f)))
+            if i == 12 or est.status == est.NON_LINEAR:
                 what = f"frame {i + 1} (init attempt)" if initial \
                     else "frame 13"
                 n, ms = (sum(v[j] for v in prof.values()) for j in (0, 1))
                 print(f"profile: {what}: {n} kernel launches, {ms:.3f} ms "
-                      f"of device time [{card}]", flush=True)
-                for part, (n, ms, sy) in prof.items():
+                      f"of device time, {syncs} host syncs [{card}]",
+                      flush=True)
+                for part, (n, ms) in prof.items():
                     print(f"profile:   {part:<16} {n:6d} launches, "
-                          f"{ms:8.3f} ms on the device, {sy} host syncs",
-                          flush=True)
+                          f"{ms:8.3f} ms on the device", flush=True)
     finally:
         undo()
     smoke.check(est.status == est.NON_LINEAR, "not initialized by frame 13")
@@ -893,7 +945,7 @@ def vio_profile(torch, card) -> None:
             out = fn(*a, **k)
             spent[part] += 1e3 * (time.perf_counter() - t)
             return out
-        undo = instrument_vio(est, clocked)
+        undo = instrument_init(clocked)
         try:
             for f in frames[:cfg.estimator.window_size + 1]:
                 smoke.feed(est, f)

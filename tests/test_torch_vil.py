@@ -87,15 +87,53 @@ def test_process_lps_matches_reference():
         np.testing.assert_allclose(qt, np.asarray(qj), rtol=0, atol=1e-6)
 
 
+def test_localizer_feedback_inverts_the_sweep_lidar_pose():
+    """The configuration's extrinsic is the body in the LiDAR (R^l_b,
+    t^l_b, named as ric/tic are): the front end keeps its inverse, the
+    LiDAR in the body, and `sweep_full`'s LiDAR pose of a body pose,
+    handed back as the localizer's feedback, gives that body pose again
+    (the JAX package composes the two one way each).  With the published
+    extrinsic the C16's spin axis is the body's vertical (the IMU's +y,
+    the camera's up) and its forward axis the camera's optical axis."""
+    _, test = lidar_pair()               # the default, published extrinsic
+    lid = test.lidar
+    R_lb = np.asarray(SystemConfig().lidar.rlb, np.float64).reshape(3, 3)
+    t_lb = np.asarray(SystemConfig().lidar.tlb, np.float64)
+    np.testing.assert_allclose(lid.rlb, R_lb.T, atol=1e-7)
+    np.testing.assert_allclose(lid.tlb, -R_lb.T @ t_lb, atol=1e-7)
+    assert lid.rlb[1, 2] > 0.999          # LiDAR z along body +y
+    assert lid.rlb[2, 0] < -0.999         # LiDAR x along body -z
+    rng = np.random.default_rng(5)
+    for _ in range(4):
+        p_b = rng.normal(size=3).astype(np.float32)
+        q_b = rng.normal(size=4).astype(np.float32)
+        q_b /= np.linalg.norm(q_b)
+        # sweep_full's b2l: the LiDAR at p_b + R_b t_bl, q_b ⊗ q_lb
+        R_b = tlie.quat_to_mat(torch.as_tensor(q_b)).numpy()
+        p_l = p_b + R_b @ lid.tlb
+        q_l = tlie.quat_mul(torch.as_tensor(q_b),
+                            torch.as_tensor(lid.q_lb)).numpy()
+        test.process_lps(0.0, p_l, q_l)
+        _, p_back, q_back = test.lps_list[-1]
+        np.testing.assert_allclose(p_back, p_b, atol=1e-5)
+        assert abs(abs(float(np.dot(q_back, q_b))) - 1.0) < 1e-6
+
+
 def test_ex_results_lidar_row_matches_reference():
     jest, test = lidar_pair()
+    # an extrinsic as a calibration leaves it: the LiDAR in the body in
+    # the port's front end, the body in the LiDAR (the configuration's
+    # convention, which both rows report) in the JAX package's
+    R_bl = tlie.quat_to_mat(tlie.quat_exp(torch.tensor(
+        [0.02, -0.01, 0.03]))).numpy()
+    t_bl = np.asarray([0.1, 0.02, -0.12], np.float32)
+    calibrated = {id(test): (R_bl, t_bl),
+                  id(jest): (R_bl.T, (-R_bl.T.astype(np.float64)
+                                      @ t_bl).astype(np.float32))}
     for est in (jest, test):
         est._record_ex_results(1.0, np.zeros(3, np.float32),
                                np.asarray([1.0, 0, 0, 0], np.float32), 0.0)
-        # an extrinsic as a calibration leaves it
-        est.lidar.rlb = tlie.quat_to_mat(tlie.quat_exp(torch.tensor(
-            [0.02, -0.01, 0.03]))).numpy()
-        est.lidar.tlb = np.asarray([0.1, 0.02, -0.12], np.float32)
+        est.lidar.rlb, est.lidar.tlb = calibrated[id(est)]
         est._record_ex_results(1.1, np.zeros(3, np.float32),
                                np.asarray([1.0, 0, 0, 0], np.float32), 0.0)
     assert len(test.ex_results) == len(jest.ex_results) == 2

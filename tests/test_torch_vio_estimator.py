@@ -3,7 +3,9 @@
 ``tests/test_new_features.py`` and ``tests/test_robustness.py`` on the
 port, the LPS table against the JAX package's, and the estimator against
 the JAX package's on one sensor stream (``chip_smoke.vio_sequence``: the
-with-bias stream of ``tests/test_vio_e2e.py``, 128 feature slots).
+with-bias stream of ``tests/test_vio_e2e.py``, 128 feature slots).  The
+JAX estimator is given the port's start-frame rule
+(``JaxWithStartFrameRule``), which the JAX package lacks.
 
 * Initialization: both estimators take the stream until they initialize
   (the 7th frame), the port's essential-matrix hypotheses replayed from
@@ -13,15 +15,17 @@ with-bias stream of ``tests/test_vio_e2e.py``, 128 feature slots).
   triangulated slots 1e-3 relative.
 * Steady state: the port takes over a snapshot of the JAX estimator right
   after its first solve (``load_reference_state``) and both run the next
-  5 frames: equal slots, keyframe decisions, failure counts and
-  trajectory lengths; gyro biases within 1e-3; poses within 1e-2 m and
-  5e-3 rad.  The pose tolerance is the frame step's, not the host
-  class's: the port's tables of the first of those frames, put through
-  the JAX package's own step, give the JAX estimator's pose bit for bit,
-  while the two steps on those same tables differ by 2.0e-3 m after 8
-  solver iterations (5.2e-5 m after 4: an LM trial decided at the
-  rounding of the cost of this just-initialized, flat window), and the
-  packages' trajectories then stay up to 7.6e-3 m apart over 9 frames.
+  5 frames: equal slots, keyframe decisions, failure counts, trajectory
+  lengths and feature tables (start, mask, valid, need_depth, fixed);
+  gyro biases within 1e-3; poses within 1e-2 m and 5e-3 rad.  The pose
+  tolerance is the frame step's, not the host class's: the port's tables
+  of the first of those frames, put through the JAX package's own step,
+  give the JAX estimator's pose bit for bit.  Both estimators run 4
+  solver iterations here: at 8, the two steps on the same tables differ
+  by 2.0e-3 m (an LM trial decided at the rounding of the cost of this
+  just-initialized, flat window), and with the start-frame rule that
+  grows to 1.1e-2 m over the 5 frames with equal tables; at 4 the steps
+  differ by 3.3e-5 m and the trajectories by at most 1.3e-3 m.
 """
 
 import dataclasses
@@ -44,6 +48,9 @@ from torch_threads import one_thread_and_warm_sqrt  # noqa: F401
 CPU = "cpu"
 N_INIT = 7            # the window fills, initializes and solves at frame 7
 N_STEADY = 5
+# the feature tables that the port's and the JAX package's host classes
+# must fill alike, frame by frame
+TABLES = ("start", "mask", "valid", "need_depth", "depth_fixed")
 T_END = chip_smoke.SEQ_T0 + 0.1 * (N_INIT + N_STEADY) - 0.05
 
 
@@ -100,6 +107,48 @@ def state_np(state):
     return {k: np.asarray(v) for k, v in state._asdict().items()}
 
 
+class JaxWithStartFrameRule(jvio.VIOEstimator):
+    """The JAX package's estimator given the port's start-frame rule, a
+    deliberate divergence of the port (``tvio.VIOEstimator.
+    _fill_feature_tables``): a track first seen in the window's newest
+    two frames stays out of the solve and of triangulation, and every
+    track kept out of the solve keeps its host depth (the JAX package
+    lets such tracks in and writes the solve's depth back to all)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._held = {}
+        self.tables_seen = []
+
+    def _fill_feature_tables(self, start, obs, vel, td_ref, mask, fixed,
+                             valid, ov_val, ov_mask, need_depth=None):
+        super()._fill_feature_tables(start, obs, vel, td_ref, mask, fixed,
+                                     valid, ov_val, ov_mask, need_depth)
+        lag = self.W - 2
+        for s, fid in enumerate(self.slots):
+            if fid is None:
+                continue
+            tr = self.tracks[fid]
+            if tr.start >= lag:
+                valid[s] = False
+                if need_depth is not None:
+                    need_depth[s] = False
+            if not valid[s]:
+                self._held[fid] = tr.inv_depth
+
+    def _solve_and_slide(self):
+        self._held = {}
+        super()._solve_and_slide()
+        for fid, depth in self._held.items():
+            if fid in self.tracks:
+                self.tracks[fid].inv_depth = depth
+
+    def _fill_imu_tables(self, *args):
+        # the feature tables are filled by now: keep what the solve gets
+        super()._fill_imu_tables(*args)
+        self.tables_seen.append({k: np.array(self._hp[k]) for k in TABLES})
+
+
 def capture_init(est, method):
     """Record est's state right after a successful initialization, before
     its first solve."""
@@ -122,10 +171,12 @@ def stream_run():
     """Both estimators on the stream: through initialization and its first
     solve, then a snapshot of the JAX one, then its next N_STEADY frames."""
     cfg = chip_smoke.sequence_config(max_features=128)
+    cfg = dataclasses.replace(cfg, estimator=dataclasses.replace(
+        cfg.estimator, max_solver_iters=4))
     frames = chip_smoke.vio_sequence(chip_smoke.sequence_world(), cfg,
                                      t_end=T_END)
     assert len(frames) == N_INIT + N_STEADY
-    jest = jvio.VIOEstimator(jax_config(cfg))
+    jest = JaxWithStartFrameRule(jax_config(cfg))
     test = tvio.VIOEstimator(cfg, device=CPU)
     test.hypothesis_source = replay_jax_keys()
     init_j = capture_init(jest, "_try_initialize_impl")
@@ -136,6 +187,7 @@ def stream_run():
             chip_smoke.feed(jest, f)
             chip_smoke.feed(test, f)
         snap = jax_snapshot(jest)
+        jest.tables_seen.clear()
         steady_j = []
         for f in frames[N_INIT:]:
             chip_smoke.feed(jest, f)
@@ -179,6 +231,7 @@ def test_steady_state_matches_reference(stream_run):
         tables.append({k: v.numpy().copy() for k, v in d.items()})
         return step(d)
     est._frame_step = keep_tables
+    jax_tables = jest.tables_seen
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
         for f, (marg_old, slots, failures, bg) in zip(
@@ -190,6 +243,11 @@ def test_steady_state_matches_reference(stream_run):
             np.testing.assert_allclose(est.state.bg[-1].numpy(), bg, rtol=0,
                                        atol=1e-3)
     assert len(est.trajectory) == N_STEADY == len(jest.trajectory) - 1
+    # each frame's feature tables are the JAX host class's (the rule too)
+    assert len(tables) == len(jax_tables) == N_STEADY
+    for ours, theirs in zip(tables, jax_tables):
+        for name in TABLES:
+            np.testing.assert_array_equal(ours[name], theirs[name])
     for (tp, pp, qp, _), (tj, pj, qj, _) in zip(est.trajectory,
                                                 jest.trajectory[1:]):
         assert tp == tj
